@@ -1,0 +1,540 @@
+// Fused low-rank linear for Hopper (sm_90a): y = (x · Bᵀ) · Aᵀ + bias.
+//
+// Replaces asvd4llm_tpu/ops/pallas_lowrank.py::_fused_2d (body `_kernel`,
+// public wrapper `fused_lowrank_apply`), SVDLinear's forward at decode
+// shapes (M <= 1024 tokens).
+//
+// Semantics kept from the TPU kernel:
+//   t = x · Bᵀ accumulated in f32;
+//   t is rounded ONCE to A's type before the second product (`_kernel:87`);
+//   y = t · Aᵀ accumulated in f32, bias (already in the io type) added in
+//   f32, one rounding to the io type at the end.
+//
+// What bounds it on this card: bytes at decode shapes. The factors are
+// R·K + N·R elements (a Llama-2-7B q_proj at R=1920 is ~31.5 MB of bf16)
+// against M·R·(K+N) multiply-adds, far below the ~295 FLOP/byte ridge for
+// M <= 16, so what matters there is streaming A and B once at full rate.
+// At M = 1024 the products are above the ridge and the tensor cores bound
+// it.
+//
+// Design:
+//   * The TPU kernel keeps t in VMEM because its grid runs in order on one
+//     core. Hopper blocks run in no order, so t goes through an f32 scratch
+//     [M, R] in device memory between two launches. At decode shapes t is
+//     tiny (M=16, R=2688 is 172 KB) and stays in the 50 MB L2, so the round
+//     trip costs nothing measurable next to the factor stream.
+//   * Both products are one "NT" product, C[M, N] += X[M, K] · W[N, K]ᵀ,
+//     split over K across the grid; the partial sums meet with f32
+//     atomicAdd in one zeroed f32 scratch, and a last small launch adds the
+//     bias and rounds. Stage 2 reads the f32 t and rounds it to A's type as
+//     it loads it.
+//   * bf16, M <= 16 (`mma_skinny`): mma.sync m16n8k16 with the operands
+//     swapped, so 16 rows of W fill the MMA's 16-row side and the few rows
+//     of X its 8-wide side. Each lane loads 16 bytes of two W rows straight
+//     into registers as its A fragment: the k order inside a 32-wide block
+//     is permuted identically for W and X, which a dot product allows, so no
+//     shuffle or shared-memory pass is needed. A warp requests 16 rows x 256
+//     columns at once; X is staged in shared memory as bf16 and serves the
+//     block's four warps. The accumulators are 4 or 8 floats a lane, so the
+//     register count does not grow with M.
+//   * bf16, M > 16 (`wmma_tiled`): 64 x 64 output tiles, four warps of
+//     32 x 32 (WMMA 16x16x16 bf16, f32 accumulators), 32-deep shared-memory
+//     stages, no pipelining. wgmma, TMA and a deeper ring are later work.
+//   * f32, and bf16 shapes whose rows are not 16-byte aligned: the same two
+//     forms on the CUDA cores (`gemv_splitk`, `nt_gemm_splitk`), since the
+//     tensor cores would round f32 inputs to TF32.
+//   The products of two bf16 values are exact in f32, so the tensor-core
+//   paths differ from the plain version only in the order of the sums.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kSms = 132;
+constexpr int kGemvMaxM = 16;  // M at or below it takes the decode forms
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// X's value rounded to W's type (the identity where the types agree; stage
+// 2 of a bf16 call reads the f32 t and must see `t.astype(a.dtype)`).
+template <typename TW, typename TX>
+__device__ __forceinline__ float x_as_w(TX v) { return to_f32(from_f32<TW>(to_f32(v))); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ------------------------------------------------------- tensor-core forms
+
+// Eight consecutive values at p as eight bf16 in 16 bytes; f32 values are
+// rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 load8_bf16(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                    pack_bf16(b.z, b.w));
+}
+
+// c += A(16x16, row) · B(16x8, col), bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+constexpr int kSkinnyWarps = 4;                 // each warp owns 16 rows of W
+constexpr int kSkinnyRows = kSkinnyWarps * 16;  // W rows per block
+constexpr int kSkinnySub = 256;                 // K per pass (8 blocks of 32)
+constexpr int kSkinnyLd = kSkinnySub + 32;      // xs row stride: 576 bytes, so the
+                                                // two rows one 8-lane phase reads
+                                                // fall on different banks
+
+// acc[M, N] += X[M, K] · W[N, K]ᵀ over the K chunk of this blockIdx.y, for
+// M <= 16, bf16 W, K % 8 == 0 and 16-byte aligned rows.
+//
+// Lane (g = lane / 4, t = lane % 4) of a warp owning W rows r0..r0+15 loads
+// W[r0 + g] and W[r0 + g + 8] at columns 8t..8t+7 of each 32-wide block.
+// Those 8 values are the lane's logical A-fragment columns {2t, 2t+1,
+// 2t+8, 2t+9} of two m16n8k16 steps; the lane's B fragment (X row g, the
+// same logical columns) is the same 8 columns of X, so both operands see one
+// permutation of k.
+template <typename TX>
+__global__ void __launch_bounds__(kSkinnyWarps * 32)
+mma_skinny(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
+           float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+  __shared__ __align__(16) __nv_bfloat16 xs[16 * kSkinnyLd];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = blockIdx.x * kSkinnyRows + warp * 16 + g;  // and row + 8
+  const int k_begin = blockIdx.y * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int m_tiles = M > 8 ? 2 : 1;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  float c[2][4] = {};
+  for (int k0 = k_begin; k0 < k_end; k0 += kSkinnySub) {
+    const int kn = min(kSkinnySub, k_end - k0);  // a multiple of 8
+    // the warp's share of W is requested before X is staged
+    uint4 lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = i * 32 + t * 8;
+      lo[i] = (row < N && k < kn) ? load8_bf16(W + (size_t)row * K + k0 + k) : zero;
+      hi[i] = (row + 8 < N && k < kn) ? load8_bf16(W + (size_t)(row + 8) * K + k0 + k) : zero;
+    }
+    __syncthreads();  // the previous pass is done with xs
+    for (int i = threadIdx.x; i < 16 * (kSkinnySub / 8); i += blockDim.x) {
+      const int m = i / (kSkinnySub / 8), k = (i % (kSkinnySub / 8)) * 8;
+      *reinterpret_cast<uint4*>(xs + m * kSkinnyLd + k) =
+          (m < M && k < kn) ? load8_bf16(X + (size_t)m * K + k0 + k) : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i * 32 >= kn) break;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < m_tiles) {
+          const uint4 xv = *reinterpret_cast<const uint4*>(
+              xs + (mt * 8 + g) * kSkinnyLd + i * 32 + t * 8);
+          mma16816(c[mt], lo[i].x, hi[i].x, lo[i].y, hi[i].y, xv.x, xv.y);
+          mma16816(c[mt], lo[i].z, hi[i].z, lo[i].w, hi[i].w, xv.z, xv.w);
+        }
+      }
+    }
+  }
+  // c[mt][j]: W row `row` (+8 for j >= 2), X row mt*8 + 2t + (j & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = row + (j >= 2 ? 8 : 0);
+      const int m = mt * 8 + 2 * t + (j & 1);
+      if (mt < m_tiles && m < M && n < N) atomicAdd(&acc[(size_t)m * N + n], c[mt][j]);
+    }
+}
+
+constexpr int kTile = 64;             // output rows and columns per block
+constexpr int kTileK = 32;            // reduction depth per stage
+constexpr int kTileLd = kTileK + 8;   // bf16 stage row stride (WMMA: multiple of 8)
+constexpr int kTileCLd = kTile + 4;   // f32 epilogue row stride
+
+// The same product for M > 16 (bf16 W, K % 8 == 0, 16-byte aligned rows):
+// a 64 x 64 output tile per block, warp w computing rows 32·(w/2).. and
+// columns 32·(w%2).. as 2 x 2 WMMA fragments.
+template <typename TX>
+__global__ void __launch_bounds__(128)
+wmma_tiled(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
+           float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 xs[kTile * kTileLd];
+  __shared__ __align__(32) __nv_bfloat16 ws[kTile * kTileLd];
+  __shared__ __align__(32) float cs[kTile * kTileCLd];
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
+    for (int i = threadIdx.x; i < kTile * (kTileK / 8); i += blockDim.x) {
+      const int r = i / (kTileK / 8), k = (i % (kTileK / 8)) * 8;
+      const bool kin = k0 + k < k_end;
+      *reinterpret_cast<uint4*>(xs + r * kTileLd + k) =
+          (m0 + r < M && kin) ? load8_bf16(X + (size_t)(m0 + r) * K + k0 + k) : zero;
+      *reinterpret_cast<uint4*>(ws + r * kTileLd + k) =
+          (n0 + r < N && kin) ? load8_bf16(W + (size_t)(n0 + r) * K + k0 + k) : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        wmma::load_matrix_sync(a[i], xs + (wm + 16 * i) * kTileLd + kk, kTileLd);
+        wmma::load_matrix_sync(b[i], ws + (wn + 16 * i) * kTileLd + kk, kTileLd);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(cs + (wm + 16 * i) * kTileCLd + wn + 16 * j, c[i][j], kTileCLd,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+    const int r = i / kTile, col = i % kTile;
+    if (m0 + r < M && n0 + col < N)
+      atomicAdd(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
+  }
+}
+
+// --------------------------------------------------------- CUDA-core forms
+
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kBK = 32;        // reduction depth per shared-memory stage
+constexpr int kBN = 64;        // output columns per block
+
+// acc[M, N] += X[M, K] · W[N, K]ᵀ over the K slice of this blockIdx.z: a
+// 16x16-thread block computes a BM x 64 output tile.
+template <typename TX, typename TW, int BM>
+__global__ void __launch_bounds__(kThreads)
+nt_gemm_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
+               float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+  constexpr int TM = BM / 16;
+  constexpr int TN = kBN / 16;
+  __shared__ float xs[kBK][BM + 1];
+  __shared__ float ws[kBK][kBN + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * kBN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+
+  float c[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) c[i][j] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+    for (int i = tid; i < BM * kBK; i += kThreads) {
+      const int r = i / kBK, kk = i % kBK;
+      const int m = m0 + r, k = k0 + kk;
+      xs[kk][r] = (m < M && k < k_end) ? x_as_w<TW>(X[(size_t)m * K + k]) : 0.f;
+    }
+    for (int i = tid; i < kBN * kBK; i += kThreads) {
+      const int r = i / kBK, kk = i % kBK;
+      const int n = n0 + r, k = k0 + kk;
+      ws[kk][r] = (n < N && k < k_end) ? to_f32(W[(size_t)n * K + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) atomicAdd(&acc[(size_t)m * N + n], c[i][j]);
+    }
+  }
+}
+
+// M <= kGemvMaxM: the X chunk sits in shared memory as f32; each warp
+// streams kGemvRows rows of W at once with VEC-wide loads (16 bytes a lane
+// where the layout allows), so every X value read from shared memory serves
+// kGemvRows rows. Lane partial sums meet in a warp reduction and one
+// atomicAdd per (m, n).
+constexpr int kGemvWarps = 8;
+constexpr int kGemvRows = 4;                       // W rows per warp pass
+constexpr int kGemvBlockRows = kGemvWarps * kGemvRows;
+constexpr int kGemvChunk = 512;                    // K per block (x: M·2 KB of smem)
+
+// VEC consecutive values of T held in registers as loaded, widened to f32
+// on use.
+template <int VEC, typename T> struct Slot;
+template <> struct Slot<4, float> {
+  float4 raw;
+  __device__ __forceinline__ void load(const float* p) {
+    raw = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ void zero() { raw = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void get(float* out) const {
+    out[0] = raw.x; out[1] = raw.y; out[2] = raw.z; out[3] = raw.w;
+  }
+};
+template <typename T> struct Slot<1, T> {
+  T raw;
+  __device__ __forceinline__ void load(const T* p) { raw = *p; }
+  __device__ __forceinline__ void zero() { raw = from_f32<T>(0.f); }
+  __device__ __forceinline__ void get(float* out) const { out[0] = to_f32(raw); }
+};
+
+template <typename TX, typename TW, int MM, int VEC>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+gemv_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
+            float* __restrict__ acc, int M, int N, int K) {
+  constexpr int IT = kGemvChunk / (32 * VEC);  // lane passes over a chunk
+  __shared__ float xs[MM * kGemvChunk];
+  const int k0 = blockIdx.y * kGemvChunk;
+  const int kn = min(kGemvChunk, K - k0);      // kn % VEC == 0
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kGemvBlockRows + warp * kGemvRows;
+
+  // The warp's whole share of W for this chunk is requested before X is
+  // staged, so the two memory round trips overlap.
+  Slot<VEC, TW> w[IT][kGemvRows];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int k = (it * 32 + lane) * VEC;
+#pragma unroll
+    for (int r = 0; r < kGemvRows; ++r) {
+      if (n0 + r < N && k < kn) w[it][r].load(W + (size_t)(n0 + r) * K + k0 + k);
+      else w[it][r].zero();
+    }
+  }
+  for (int i = threadIdx.x; i < M * kn; i += blockDim.x) {
+    const int m = i / kn, k = i - m * kn;
+    xs[m * kGemvChunk + k] = x_as_w<TW>(X[(size_t)m * K + k0 + k]);
+  }
+  __syncthreads();
+
+  float s[kGemvRows][MM];
+#pragma unroll
+  for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+    for (int m = 0; m < MM; ++m) s[r][m] = 0.f;
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int k = (it * 32 + lane) * VEC;
+    if (k >= kn) break;
+    float wf[kGemvRows][VEC];
+#pragma unroll
+    for (int r = 0; r < kGemvRows; ++r) w[it][r].get(wf[r]);
+#pragma unroll
+    for (int m = 0; m < MM; ++m) {
+      if (m < M) {
+        float xv[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) xv[v] = xs[m * kGemvChunk + k + v];
+#pragma unroll
+        for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) s[r][m] = fmaf(wf[r][v], xv[v], s[r][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+    for (int m = 0; m < MM; ++m) {
+      if (m < M && n0 + r < N) {
+        const float v = warp_sum(s[r][m]);
+        if (lane == 0) atomicAdd(&acc[(size_t)m * N + n0 + r], v);
+      }
+    }
+}
+
+// y = round(acc + bias), bias may be null.
+template <typename T>
+__global__ void finalize(const float* __restrict__ acc, const T* __restrict__ bias,
+                         T* __restrict__ y, int M, int N) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * N) return;
+  float v = acc[i];
+  if (bias != nullptr) v += to_f32(bias[i % N]);
+  y[i] = from_f32<T>(v);
+}
+
+// ---------------------------------------------------------------- launches
+
+// Split the reduction so that the grid holds about `per_sm` blocks per SM,
+// in chunks that are a multiple of `step` and at least `min_steps` steps.
+int k_chunk_for(int K, int base_blocks, int per_sm, int step, int min_steps) {
+  int splits = cdiv(per_sm * kSms, base_blocks);
+  splits = std::max(1, std::min(splits, cdiv(K, min_steps * step)));
+  return cdiv(cdiv(K, splits), step) * step;
+}
+
+template <typename TX, typename TW, int MM, int VEC>
+void launch_gemv_mm(const TX* X, const TW* W, float* acc, int M, int N, int K,
+                    cudaStream_t stream) {
+  const dim3 grid(cdiv(N, kGemvBlockRows), cdiv(K, kGemvChunk));
+  gemv_splitk<TX, TW, MM, VEC><<<grid, kGemvWarps * 32, 0, stream>>>(X, W, acc, M, N, K);
+}
+
+template <typename TX, typename TW, int VEC>
+void launch_gemv(const TX* X, const TW* W, float* acc, int M, int N, int K,
+                 cudaStream_t stream) {
+  if (M <= 1) launch_gemv_mm<TX, TW, 1, VEC>(X, W, acc, M, N, K, stream);
+  else if (M <= 2) launch_gemv_mm<TX, TW, 2, VEC>(X, W, acc, M, N, K, stream);
+  else if (M <= 4) launch_gemv_mm<TX, TW, 4, VEC>(X, W, acc, M, N, K, stream);
+  else if (M <= 8) launch_gemv_mm<TX, TW, 8, VEC>(X, W, acc, M, N, K, stream);
+  else launch_gemv_mm<TX, TW, 16, VEC>(X, W, acc, M, N, K, stream);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// acc[M, N] += X · Wᵀ on the CUDA cores (f32 W).
+template <typename TX>
+void launch_nt(const TX* X, const float* W, float* acc, int M, int N, int K,
+               cudaStream_t stream) {
+  if (M <= kGemvMaxM) {
+    if (K % 4 == 0 && aligned16(W)) launch_gemv<TX, float, 4>(X, W, acc, M, N, K, stream);
+    else launch_gemv<TX, float, 1>(X, W, acc, M, N, K, stream);
+    return;
+  }
+  const int base = cdiv(N, kBN) * cdiv(M, 64);
+  const int k_chunk = k_chunk_for(K, base, 2, kBK, 4);
+  const dim3 grid(cdiv(N, kBN), cdiv(M, 64), cdiv(K, k_chunk));
+  nt_gemm_splitk<TX, float, 64><<<grid, kThreads, 0, stream>>>(X, W, acc, M, N, K, k_chunk);
+}
+
+// acc[M, N] += X · Wᵀ for bf16 W: on the tensor cores where every row of X
+// and W starts 16-byte aligned, on the CUDA cores otherwise.
+template <typename TX>
+void launch_nt(const TX* X, const __nv_bfloat16* W, float* acc, int M, int N, int K,
+               cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if (K % 8 != 0 || !aligned16(W) || !aligned16(X)) {
+    if (M <= kGemvMaxM) {
+      launch_gemv<TX, bf16, 1>(X, W, acc, M, N, K, stream);
+      return;
+    }
+    const int base = cdiv(N, kBN) * cdiv(M, 64);
+    const int k_chunk = k_chunk_for(K, base, 2, kBK, 4);
+    const dim3 grid(cdiv(N, kBN), cdiv(M, 64), cdiv(K, k_chunk));
+    nt_gemm_splitk<TX, bf16, 64><<<grid, kThreads, 0, stream>>>(X, W, acc, M, N, K, k_chunk);
+    return;
+  }
+  if (M <= kGemvMaxM) {
+    const int rows = cdiv(N, kSkinnyRows);
+    const int k_chunk = k_chunk_for(K, rows, 4, kSkinnySub, 1);
+    mma_skinny<TX><<<dim3(rows, cdiv(K, k_chunk)), kSkinnyWarps * 32, 0, stream>>>(
+        X, W, acc, M, N, K, k_chunk);
+    return;
+  }
+  const int base = cdiv(N, kTile) * cdiv(M, kTile);
+  const int k_chunk = k_chunk_for(K, base, 2, kTileK, 4);
+  const dim3 grid(cdiv(N, kTile), cdiv(M, kTile), cdiv(K, k_chunk));
+  wmma_tiled<TX><<<grid, 128, 0, stream>>>(X, W, acc, M, N, K, k_chunk);
+}
+
+template <typename T>
+int run(const T* x, const T* b, const T* a, const T* bias, T* y, float* scratch, int M,
+        int K, int R, int N, cudaStream_t stream) {
+  float* t = scratch;                      // [M, R]
+  float* y_acc = scratch + (size_t)M * R;  // [M, N]
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)M * (R + N), stream);
+  if (err != cudaSuccess) return (int)err;
+  launch_nt<T>(x, b, t, M, R, K, stream);          // t = x · Bᵀ
+  launch_nt<float>(t, a, y_acc, M, N, R, stream);  // y = T(t) · Aᵀ
+  const size_t total = (size_t)M * N;
+  finalize<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(y_acc, bias, y, M, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. x [M,K], b [R,K], a [N,R], bias [N] or
+// null, y [M,N] of the io type; scratch holds M·(R+N) f32 values. Returns
+// cudaGetLastError() after the launches (0 = success).
+extern "C" int fused_lowrank_launch(const void* x, const void* b, const void* a,
+                                    const void* bias, void* y, void* scratch, int M, int K,
+                                    int R, int N, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scr = static_cast<float*>(scratch);
+  if (dtype == 0)
+    return run<float>(static_cast<const float*>(x), static_cast<const float*>(b),
+                      static_cast<const float*>(a), static_cast<const float*>(bias),
+                      static_cast<float*>(y), scr, M, K, R, N, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(b),
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(y), scr, M, K, R, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* fused_lowrank_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,162 @@
+"""Fused latent-KV decode attention (flash-decoding over rank-dim latents) —
+kernel 2.
+
+Port of asvd4llm_tpu/ops/pallas_latent_attention.py::_latent_attention_core
+(public wrapper ``latent_decode_attention``). For a layer whose k/v
+projections are low-rank, one decode step reads the latent caches
+tk [B,T,Rk] and tv [B,T,Rv] once and computes, per query head h of KV
+group g(h):
+
+  K     = tk · A_kᵀ (f32), rotate-half RoPE with f32 cos/sin
+  p     = softmax-numerator over keys of scale·q·K (+ softcap, causal and
+          sliding mask with -1e30), taken online over T tiles
+  s_h   = Σ_t p_t (rounded to tv's dtype) · tv_t   / Σ_t p_t
+  out_h = s_h · A_v[g(h)]ᵀ + b_v                 (in this wrapper)
+
+The kernel (``csrc/latent_attention.cu``) produces s [B,H,Rv] f32 on a CUDA
+tensor; ``latent_attention_reference`` is its plain PyTorch version with the
+same casts, and a CPU tensor takes it. Restrictions, as in the JAX kernel:
+rope positional encoding and no k-projection bias (the caller checks).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from asvd4llm_tpu_torch.ops import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448          # opt-in shared memory of one Hopper block
+_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_REP = 16
+
+
+def _rotate_half(k: torch.Tensor) -> torch.Tensor:
+    half = k.shape[-1] // 2
+    return torch.cat([-k[..., half:], k[..., :half]], dim=-1)
+
+
+def latent_attention_reference(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *,
+                               scale, softcap, sliding, kv_heads):
+    """Plain version of the kernel: -> s [B, H, Rv] f32."""
+    B, H, hd = q_rot.shape
+    T = tk.shape[1]
+    KV = kv_heads
+    rep = H // KV
+    k = torch.matmul(tk.float(), a_k.float().t()).reshape(B, T, KV, hd)
+    c = cos_full.float()[None, :, None, :]
+    s = sin_full.float()[None, :, None, :]
+    k = k * c + _rotate_half(k) * s
+    qg = q_rot.float().reshape(B, KV, rep, hd)
+    logits = torch.einsum("bgrd,btgd->bgrt", qg, k) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    k_pos = torch.arange(T, device=tk.device)
+    allow = k_pos <= pos
+    if sliding > 0:
+        allow &= k_pos > pos - sliding
+    logits = torch.where(allow, logits, torch.full_like(logits, -1e30))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    den = p.sum(dim=-1)                                       # [B, KV, rep]
+    num = torch.einsum("bgrt,btv->bgrv", p.to(tv.dtype).float(), tv.float())
+    return (num / den[..., None]).reshape(B, H, -1)
+
+
+def _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *, scale, softcap,
+            sliding, kv_heads):
+    B, H, hd = q_rot.shape
+    T, Rk = tk.shape[1], tk.shape[2]
+    Rv = tv.shape[2]
+    KV = kv_heads
+    if q_rot.dtype not in _DTYPE_CODES:
+        raise TypeError(f"latent_attention: dtype {q_rot.dtype} not supported")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"latent_attention: head_dim {hd} not in {_HEAD_DIMS}")
+    if H % KV or H // KV > _MAX_REP:
+        raise ValueError(f"latent_attention: {H} heads over {KV} KV heads")
+    if not 0 <= pos < T:
+        raise ValueError(f"latent_attention: position {pos} outside cache of {T}")
+    shapes = {"tk": (tk, (B, T, Rk)), "tv": (tv, (B, T, Rv)),
+              "a_k": (a_k, (KV * hd, Rk)), "cos": (cos_full, (T, hd)),
+              "sin": (sin_full, (T, hd)), "q": (q_rot, (B, H, hd))}
+    for nm, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"latent_attention: {nm} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.device != q_rot.device:
+            raise ValueError(f"latent_attention: {nm} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"latent_attention: {nm} is not contiguous")
+        want = torch.float32 if nm in ("cos", "sin") else q_rot.dtype
+        if t.dtype != want:
+            raise TypeError(f"latent_attention: {nm} is {t.dtype}, expected {want}")
+    lib = _build.library("latent_attention")
+    smem = lib.latent_attention_smem_bytes
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 3
+    need = smem(hd, H // KV, Rv)
+    if need > _MAX_SMEM:
+        raise ValueError(f"latent_attention: needs {need} bytes of shared "
+                         f"memory (rep {H // KV}, Rv {Rv}), over {_MAX_SMEM}")
+    fn = lib.latent_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    out = torch.empty((B, H, Rv), dtype=torch.float32, device=q_rot.device)
+    with torch.cuda.device(q_rot.device):
+        stream = torch.cuda.current_stream(q_rot.device).cuda_stream
+        err = fn(q_rot.data_ptr(), tk.data_ptr(), tv.data_ptr(), a_k.data_ptr(),
+                 cos_full.data_ptr(), sin_full.data_ptr(), out.data_ptr(),
+                 B, H, KV, hd, T, Rk, Rv, int(pos), float(scale),
+                 float(softcap), int(sliding), _DTYPE_CODES[q_rot.dtype], stream)
+    _build.check(lib, "latent_attention", err)
+    latent_decode_attention.launches += 1
+    return out
+
+
+def _latent_attention_core(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *,
+                           scale, softcap, sliding, kv_heads):
+    """q_rot [B, H, hd] (already rotated), tk [B, T, Rk], tv [B, T, Rv],
+    a_k [KV*hd, Rk], cos/sin [T, hd] f32, pos int -> s_norm [B, H, Rv] f32."""
+    kw = dict(scale=scale, softcap=softcap, sliding=sliding, kv_heads=kv_heads)
+    if q_rot.device.type == "cuda":
+        return _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, **kw)
+    if q_rot.device.type == "cpu":
+        return latent_attention_reference(q_rot, tk, tv, a_k, cos_full,
+                                          sin_full, pos, **kw)
+    raise ValueError(f"latent_attention: no kernel for device {q_rot.device}")
+
+
+def latent_decode_attention(q_rot, tk, tv, a_k, a_v, cos_full, sin_full, pos,
+                            *, kv_heads, scale, softcap=0.0, sliding=0,
+                            v_bias: Optional[torch.Tensor] = None):
+    """Fused latent attention for one decode step.
+
+    q_rot [B, H, hd] rotated query; tk/tv [B, T, R*] latent caches;
+    a_k [KV*hd, Rk], a_v [KV*hd, Rv] (the low-rank A factors); pos: the
+    query's position (int). Returns the attention output [B, H*hd] f32
+    (pre-o_proj). Keys at or past T never enter, which equals the JAX
+    wrapper's zero padding of T to its tile."""
+    B, H, hd = q_rot.shape
+    KV = kv_heads
+    rep = H // KV
+    Rv = tv.shape[2]
+    s_norm = _latent_attention_core(
+        q_rot.contiguous(), tk, tv, a_k, cos_full.float().contiguous(),
+        sin_full.float().contiguous(), int(pos), scale=scale, softcap=softcap,
+        sliding=sliding, kv_heads=KV)                        # [B, H, Rv]
+    # V up-projection per KV group, never materializing the repeated A_v
+    a_v3 = a_v.float().reshape(KV, hd, Rv)
+    out = torch.einsum("bgrv,gdv->bgrd", s_norm.reshape(B, KV, rep, Rv), a_v3)
+    if v_bias is not None:
+        out = out + v_bias.float().reshape(KV, hd)[None, :, None, :]
+    return out.reshape(B, H * hd)
+
+
+# launches of the CUDA kernel in this process (the plain version does not count)
+latent_decode_attention.launches = 0

@@ -1,0 +1,615 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (asvd4llm_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase, as the chip check runs it
+    python3 chip_smoke.py --phases kernels
+
+Phases:
+  kernels  build the CUDA kernels from csrc/, hold each against its plain
+           PyTorch version at Llama-2-7B shapes (bf16 and f32), and time the
+           kernel, the plain version, a PyTorch yardstick and the bound;
+  main     write a random checkpoint at Llama-2-7B widths (depth cut to 2
+           layers); run the port's CLI with a parameter-ratio target, then
+           greedy-decode the compressed model with use_pallas=True over
+           dense caches; run the CLI with a KV-cache target on the same
+           checkpoint, then greedy-decode over the realized latent cache.
+           Each run's kernel launches are counted from 0 and must be > 0.
+
+Exits non-zero without a CUDA device, and when any phase fails. The last
+line of standard output is the device record
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+L2_FLUSH_BYTES = 128 << 20                     # > the 50 MB L2
+
+# Llama-2-7B (meta-llama/Llama-2-7b-hf config.json); depth is cut below
+LLAMA2_7B = {
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+    "hidden_size": 4096, "intermediate_size": 11008,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "num_hidden_layers": 32, "vocab_size": 32000,
+    "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+SMOKE_LAYERS = 2
+KERNEL1_SHAPES = [  # (name, N, K, R): Llama-2-7B linears at ratio 0.9, rank_align 128
+    ("q_proj", 4096, 4096, 1920), ("k_proj", 4096, 4096, 1920),
+    ("v_proj", 4096, 4096, 1920), ("o_proj", 4096, 4096, 1920),
+    ("gate_proj", 11008, 4096, 2688), ("up_proj", 11008, 4096, 2688),
+    ("down_proj", 4096, 11008, 2688),
+]
+DECODE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 128, 32
+# calibration rows and window length of the two CLI runs (the PPL scan
+# evaluates every leaf at 6 weight ratios and 19 KV ratios on these rows)
+MAIN_SIZES = {"n_calib_samples": 8, "seqlen": 256}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+class Timer:
+    """Device time of a callable: the sum of the GPU activities (kernels,
+    memsets, copies) that torch.profiler's CUPTI trace records for it, per
+    call, with the L2 flushed before every call (a decode step finds each
+    layer's weights cold). The flush reads 128 MB and writes nothing large,
+    so it leaves the L2 holding clean lines, as the previous layer's weights
+    would: a flush that wrote would make every timed call pay for writing
+    its lines back. One stream runs everything, so the trace in start order
+    is flush, call, flush, call...; the flush's own activities are dropped
+    by position. Where the trace holds no device activity, CUDA events
+    around each call give the time instead, and `method` says which."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        buf = torch.ones(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        self.flush = buf.max
+        self.method = None
+
+    def _trace(self, run):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            self.torch.cuda.synchronize()
+        acts = [(e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        return [us for _, us in sorted(acts)]
+
+    def ms(self, fn, iters=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            self.flush()
+            fn()
+        torch.cuda.synchronize()
+        n_flush = len(self._trace(self.flush))
+
+        def run():
+            for _ in range(iters):
+                self.flush()
+                fn()
+        acts = self._trace(run)
+        per_call = len(acts) // iters
+        if acts and per_call > n_flush and len(acts) == per_call * iters:
+            self.method = "device time from the profiler trace"
+            return sum(us for i, us in enumerate(acts)
+                       if i % per_call >= n_flush) / 1e3 / iters
+        self.method = "CUDA events around each call"
+        total = 0.0
+        for _ in range(iters):
+            self.flush()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            total += s.elapsed_time(e)
+        return total / iters
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(out, ref):
+    d = (out.float() - ref.float()).abs()
+    return float(d.max()), float((d / (ref.float().abs() + 1e-6)).median())
+
+
+def within(out, ref, atol, rtol):
+    return bool(((out.float() - ref.float()).abs()
+                 <= atol + rtol * ref.float().abs()).all())
+
+
+# ------------------------------------------------------------------ kernels
+
+def phase_kernels(torch, timer, record):
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import latent_attention as la
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tol = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+    failures = []
+
+    # kernel 1 ------------------------------------------------------------
+    log("kernel fused_lowrank: y = (x·Bᵀ)·Aᵀ + bias vs fused_lowrank_reference")
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "bytes": 0.0, "flops": 0.0}
+    err_main = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = tol[dtype]
+        for M in (1, DECODE_BATCH, 16, 1024):
+            for name, N, K, R in KERNEL1_SHAPES:
+                x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+                b = (torch.randn(R, K, generator=g, device="cuda") * K ** -0.5).to(dtype)
+                a = (torch.randn(N, R, generator=g, device="cuda") * R ** -0.5).to(dtype)
+                bias = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
+                out = fl.fused_lowrank_apply(x, a, b, bias)
+                ref = fl.fused_lowrank_reference(x, a, b, bias)
+                torch.cuda.synchronize()
+                err, med_rel = max_err(out, ref)
+                ok = within(out, ref, atol, rtol)
+                line = (f"  {str(dtype)[6:]:8s} M={M:4d} {name:9s} N={N} K={K} R={R}"
+                        f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                        f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
+                if dtype == torch.bfloat16:
+                    isz = x.element_size()
+                    nbytes = (R * K + N * R + M * K + M * N + N) * isz
+                    flops = 2 * M * R * (K + N)
+                    bms, by = bound(nbytes, flops, dtype)
+                    k_ms = timer.ms(lambda: fl.fused_lowrank_apply(x, a, b, bias))
+                    p_ms = timer.ms(lambda: fl.fused_lowrank_reference(x, a, b, bias))
+                    l_ms = timer.ms(lambda: torch.nn.functional.linear(
+                        torch.matmul(x, b.t()), a, bias))
+                    line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
+                             f" two matmuls {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
+                             f" ({by})")
+                    if M == DECODE_BATCH:
+                        for k_, v_ in (("ms", k_ms), ("plain_ms", p_ms),
+                                       ("library_ms", l_ms), ("bound_ms", bms),
+                                       ("bytes", nbytes), ("flops", flops)):
+                            sums[k_] += v_
+                        err_main = max(err_main, err)
+                log(line)
+                if not ok:
+                    failures.append(f"fused_lowrank {dtype} M={M} {name}")
+    by = "bytes" if sums["bytes"] / HBM_BYTES_PER_S >= \
+        sums["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
+    log(f"  timing: {timer.method}")
+    log(f"  one Llama-2-7B layer's 7 linears at M={DECODE_BATCH} bf16: kernel "
+        f"{sums['ms'] * 1e3:.1f} us, plain {sums['plain_ms'] * 1e3:.1f} us, two "
+        f"matmuls {sums['library_ms'] * 1e3:.1f} us, bound {sums['bound_ms'] * 1e3:.1f}"
+        f" us ({by}: {sums['bytes'] / 1e6:.1f} MB, {sums['flops'] / 1e9:.2f} GFLOP)")
+    record["fused_lowrank"] = {
+        "name": "fused_lowrank", "route": "cuda",
+        "source": "asvd4llm_tpu_torch/csrc/fused_lowrank.cu",
+        "replaces": "asvd4llm_tpu/ops/pallas_lowrank.py:118",
+        "max_abs_err": err_main, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+        "bound_ms": sums["bound_ms"], "bound_by": by,
+        "library_ms": sums["library_ms"],
+        "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={DECODE_BATCH}, bf16",
+    }
+
+    # kernel 2 ------------------------------------------------------------
+    log("kernel latent_attention: s = softmax(q·RoPE(tk·A_kᵀ))·tv vs "
+        "latent_attention_reference")
+    cases = [  # (label, B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding)
+        ("mha", 4, 32, 32, 128, 544, 1024, 1024, 543, 0.0, 0),
+        ("mha_mid", 4, 32, 32, 128, 544, 1024, 1024, 300, 0.0, 0),
+        ("gqa4", 4, 32, 8, 128, 544, 1024, 768, 543, 0.0, 0),
+        ("sliding", 4, 32, 32, 128, 544, 1024, 1024, 500, 0.0, 128),
+        ("softcap", 4, 32, 8, 128, 544, 1024, 1024, 543, 50.0, 0),
+    ]
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+        for label, B, H, KV, hd, T, Rk, Rv, pos, cap, sw in cases:
+            q = torch.randn(B, H, hd, generator=g, device="cuda").to(dtype)
+            tk = (torch.randn(B, T, Rk, generator=g, device="cuda") * 0.5).to(dtype)
+            tv = (torch.randn(B, T, Rv, generator=g, device="cuda") * 0.5).to(dtype)
+            a_k = (torch.randn(KV * hd, Rk, generator=g, device="cuda")
+                   * Rk ** -0.5).to(dtype)
+            inv = 1.0 / (10000.0 ** (torch.arange(0, hd, 2, device="cuda",
+                                                  dtype=torch.float32) / hd))
+            fr = torch.arange(T, device="cuda", dtype=torch.float32)[:, None] * inv
+            emb = torch.cat([fr, fr], dim=-1)
+            cos, sin = emb.cos().contiguous(), emb.sin().contiguous()
+            kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+            out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos, **kw)
+            ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
+            torch.cuda.synchronize()
+            err, med_rel = max_err(out, ref)
+            ok = within(out, ref, atol, rtol)
+            line = (f"  {str(dtype)[6:]:8s} {label:8s} B={B} H={H} KV={KV} hd={hd} T={T}"
+                    f" Rk={Rk} Rv={Rv} pos={pos} max_abs_err={err:.3e}"
+                    f" median_rel={med_rel:.2e} tol=atol {atol:g} + rtol {rtol:g}"
+                    f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"latent_attention {dtype} {label}")
+            if dtype == torch.bfloat16 and label in ("mha", "gqa4"):
+                live = pos + 1 if sw <= 0 else min(pos + 1, sw)
+                isz = tk.element_size()
+                nbytes = (B * live * (Rk + Rv) + KV * hd * Rk + B * H * hd) * isz \
+                    + B * H * Rv * 4 + 2 * live * hd * 4
+                flops = 2 * B * live * (Rk * KV * hd + H * hd + H * Rv)
+                bms, by = bound(nbytes, flops, dtype)
+                k_ms = timer.ms(lambda: la._latent_attention_core(
+                    q, tk, tv, a_k, cos, sin, pos, **kw))
+                p_ms = timer.ms(lambda: la.latent_attention_reference(
+                    q, tk, tv, a_k, cos, sin, pos, **kw))
+                l_ms = timer.ms(lambda: _sdpa_latent(torch, q, tk, tv, a_k, cos, sin,
+                                                     KV, hd))
+                line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
+                         f" unfused+SDPA {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
+                         f" ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                if label == "mha":
+                    main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                            "bound_ms": bms, "bound_by": by, "library_ms": l_ms}
+            log(line)
+    record["latent_attention"] = {
+        "name": "latent_attention", "route": "cuda",
+        "source": "asvd4llm_tpu_torch/csrc/latent_attention.cu",
+        "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:284",
+        **main,
+        "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16",
+    }
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions: {failures}")
+
+
+def kernel_counts():
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import latent_attention as la
+    return {"fused_lowrank": fl.fused_lowrank_apply.launches,
+            "latent_attention": la.latent_decode_attention.launches}
+
+
+def reset_kernel_counts():
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import latent_attention as la
+    fl.fused_lowrank_apply.launches = 0
+    la.latent_decode_attention.launches = 0
+
+
+def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd):
+    """Yardstick, never called by the port: the unfused latent path with
+    PyTorch's scaled_dot_product_attention (K materialized, V = latents)."""
+    B, H, _ = q.shape
+    T = tk.shape[1]
+    k = torch.matmul(tk, a_k.t()).reshape(B, T, KV, hd).transpose(1, 2)
+    half = hd // 2
+    k = k * cos.to(k.dtype) + torch.cat([-k[..., half:], k[..., :half]], -1) * sin.to(k.dtype)
+    rep = H // KV
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+    v = tv[:, None].expand(B, H, T, tv.shape[2])
+    return torch.nn.functional.scaled_dot_product_attention(q[:, :, None, :], k, v)
+
+
+# -------------------------------------------------------------- main path
+
+def write_checkpoint(work, config, layers):
+    """A random bf16 checkpoint at the config's widths, depth cut to
+    `layers`."""
+    from asvd4llm_tpu_torch.utils.testing import write_random_checkpoint
+    ckpt = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    write_random_checkpoint(ckpt, dict(config, num_hidden_layers=layers),
+                            seed=0, dtype="bfloat16")
+    log(f"checkpoint: {ckpt} (random weights, seed 0, bf16) in "
+        f"{time.perf_counter() - t0:.1f} s; reduced: num_hidden_layers "
+        f"{config['num_hidden_layers']}→{layers}")
+    return ckpt
+
+
+def run_cli(torch, ckpt, work, target_flags, sizes, device):
+    """One compression run through the port's CLI; returns its output."""
+    from asvd4llm_tpu_torch import cli
+    argv = ["--model_id", ckpt, *target_flags, "--act_aware",
+            "--calib_dataset", "synthetic", "--eval_ppl", "synthetic",
+            "--n_calib_samples", str(sizes["n_calib_samples"]),
+            "--seqlen", str(sizes["seqlen"]), "--eval_dtype", "bfloat16",
+            "--cache_dir", os.path.join(work, "cache"),
+            "--output_dir", os.path.join(work, "out")]
+    log(f"  cli: {' '.join(argv[2:])}")
+    t0 = time.perf_counter()
+    out = cli.main(argv, device=device)
+    secs = time.perf_counter() - t0
+    ppl = out["results"]["synthetic"]
+    manifest = out["manifest"] or {}
+    log(f"  ppl(synthetic, seqlen {sizes['seqlen']}) = {ppl!r}; manifest: "
+        f"{len(manifest)} low-rank leaves {manifest}")
+    log("  phase times (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["phase_times"].items())
+        + f"; total {secs:.1f}")
+    if not (ppl == ppl and 1.0 < ppl < float("inf")):
+        raise AssertionError(f"PPL {ppl!r} is not a finite value above 1")
+    if not manifest:
+        raise AssertionError("the compression run factorized no leaf")
+    return out
+
+
+def greedy(torch, out, prompt, *, latent_kv):
+    """Greedy decode through generate(..., use_pallas=True); checks the
+    shape and the token range, returns (tokens, seconds)."""
+    from asvd4llm_tpu_torch.eval.generate import generate
+    t0 = time.perf_counter()
+    toks = generate(out["params"], out["spec"], prompt,
+                    max_new_tokens=NEW_TOKENS, latent_kv=latent_kv,
+                    use_pallas=True)
+    secs = time.perf_counter() - t0
+    B, S = prompt.shape
+    if toks.shape != (B, S + NEW_TOKENS) or (toks[:, :S] != prompt).any() \
+            or toks.min() < 0 or toks.max() >= out["spec"].vocab_size:
+        raise AssertionError(f"generate returned a wrong result, shape {toks.shape}")
+    log(f"  generate(batch {B}, prompt {S}, {NEW_TOKENS} new, latent_kv="
+        f"{latent_kv}, use_pallas=True): {secs:.2f} s, "
+        f"{B * NEW_TOKENS / secs:.1f} tok/s with prefill; first row's new tokens "
+        f"{toks[0, S:S + 8].tolist()}...")
+    return toks, secs
+
+
+def step_check(torch, out, prompt, *, latent_kv, steps=16):
+    """One decode step after the prompt, with the kernels and with the plain
+    tensor path on the same caches: the logits must agree within a bf16
+    tolerance (5% of the largest logit; bf16 keeps 8 bits of mantissa and a
+    step rounds some thirty times). Then times `steps` kernel steps."""
+    from asvd4llm_tpu_torch.eval.generate import (
+        decode_step, init_caches, prefill_host,
+    )
+    params, spec = out["params"], out["spec"]
+    dev = params["embed_tokens"].device
+    ids = torch.as_tensor(prompt, device=dev)
+    B, S = ids.shape
+    caches = init_caches(params, spec, B, S + steps + 1, params["embed_tokens"].dtype,
+                         latent=latent_kv, device=dev)
+    logits, caches = prefill_host(params, spec, ids, caches, latent=latent_kv)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    clone = [{k: v.clone() for k, v in c.items()} for c in caches]
+    fused, _ = decode_step(params, spec, tok, clone, S, use_pallas=True)
+    clone = [{k: v.clone() for k, v in c.items()} for c in caches]
+    plain, _ = decode_step(params, spec, tok, clone, S, use_pallas=False)
+    if fused.shape != (B, spec.vocab_size) or not bool(torch.isfinite(fused).all()):
+        raise AssertionError("decode-step logits are not finite or of a wrong shape")
+    err = float((fused - plain).abs().max())
+    tol = 0.05 * float(plain.abs().max())
+    agree = float((fused.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"  first decode step, kernels vs plain tensor path: max_abs_err "
+        f"{err:.3e} tol {tol:.3e} (5% of max |logit|), argmax agreement "
+        f"{agree:.2f} {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        raise AssertionError("decode step with the kernels disagrees with the plain path")
+    kernels_at_path_shapes(torch, params, spec, caches, S)
+    sync =torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    state = {"tok": tok, "caches": caches, "pos": S}
+
+    def run(n):
+        for _ in range(n):
+            logits, state["caches"] = decode_step(params, spec, state["tok"],
+                                                  state["caches"], state["pos"],
+                                                  use_pallas=True)
+            state["tok"] = torch.argmax(logits, dim=-1)[:, None]
+            state["pos"] += 1
+    sync()
+    t0 = time.perf_counter()
+    run(steps // 2)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps // 2)
+    log(f"  decode step with the kernels: {ms:.2f} ms on the host clock "
+        f"({B * 1e3 / ms:.1f} tok/s at batch {B}, cache {S + steps + 1})")
+    if dev.type == "cuda":
+        decode_breakdown(torch, lambda: run(steps - steps // 2), steps - steps // 2)
+    return ms
+
+
+def kernels_at_path_shapes(torch, params, spec, caches, pos):
+    """Each kernel against its plain version at the shapes this main-path
+    run gives it: every low-rank leaf of the compressed model on a random
+    decode-batch x, and every latent layer on its filled caches with a random
+    query at `pos`. Same tolerances as the kernel phase."""
+    from asvd4llm_tpu_torch.models.decoder import attn_scale, rope_cos_sin
+    from asvd4llm_tpu_torch.models.registry import is_lowrank, iter_linears
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import latent_attention as la
+
+    dev = params["embed_tokens"].device
+    dtype = params["embed_tokens"].dtype
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.Generator(device=dev).manual_seed(2)
+    B = caches[0][next(iter(caches[0]))].shape[0]
+    for name, leaf in iter_linears(params, spec, include_extras=True):
+        if not is_lowrank(leaf):
+            continue
+        x = torch.randn(B, leaf["B"].shape[1], generator=g, device=dev).to(dtype)
+        out = fl.fused_lowrank_apply(x, leaf["A"], leaf["B"], leaf["b"])
+        ref = fl.fused_lowrank_reference(x, leaf["A"], leaf["B"], leaf["b"])
+        sync()
+        err, _ = max_err(out, ref)
+        ok = within(out, ref, 2e-2, 2e-2)
+        log(f"  fused_lowrank at {name} (M={B}, N={leaf['A'].shape[0]}, "
+            f"K={leaf['B'].shape[1]}, R={leaf['A'].shape[1]}): max_abs_err {err:.3e} "
+            f"tol=atol 0.02 + rtol 0.02 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_lowrank disagrees with its plain version at {name}")
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    for i, (layer, cache) in enumerate(zip(params["layers"], caches)):
+        if "tk" not in cache:
+            continue
+        tk, tv = cache["tk"], cache["tv"]
+        T = tk.shape[1]
+        cos, sin = rope_cos_sin(torch.arange(T, device=dev), hd, spec.rope_theta)
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+        kw = dict(scale=attn_scale(spec), softcap=spec.attn_logit_softcap,
+                  sliding=spec.sliding_window if spec.layer_uses_sliding(i) else 0,
+                  kv_heads=KV)
+        args = (q, tk, tv, layer["k_proj"]["A"], cos.float().contiguous(),
+                sin.float().contiguous(), pos)
+        out = la._latent_attention_core(*args, **kw)
+        ref = la.latent_attention_reference(*args, **kw)
+        sync()
+        err, _ = max_err(out, ref)
+        ok = within(out, ref, 1e-2, 1e-2)
+        log(f"  latent_attention at layer {i} (B={B} H={H} KV={KV} hd={hd} T={T} "
+            f"Rk={tk.shape[2]} Rv={tv.shape[2]} pos={pos}): max_abs_err {err:.3e} "
+            f"tol=atol 0.01 + rtol 0.01 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"latent_attention disagrees with its plain version "
+                                 f"at layer {i}")
+
+
+def decode_breakdown(torch, run, steps):
+    """Where a decode step's device time goes: GPU activity by kernel name
+    from a profiler trace of `steps` steps, and the device's idle share of
+    the traced wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        log("  decode breakdown: the profiler trace holds no device activity")
+        return
+    log(f"  decode breakdown over {steps} steps: device busy {busy / steps:.3f} ms "
+        f"per step, traced wall {wall / steps:.3f} ms per step (profiler on), "
+        f"device idle share {max(0.0, 1 - busy / wall):.3f}")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {t / steps:.4f} ms/step {100 * t / busy:5.1f}%  {name[:90]}")
+
+
+def phase_main_path(torch, work, config, layers, sizes, device, launches):
+    """Weight-target and KV-target runs through the CLI, each followed by
+    greedy decode with use_pallas=True. The kernel counts are set to 0
+    just before each run and read just after its decode; `launches`
+    accumulates them per kernel."""
+    ckpt = write_checkpoint(work, config, layers)
+    prompt = np.random.RandomState(1).randint(
+        0, config["vocab_size"], (DECODE_BATCH, PROMPT_LEN))
+
+    log("main path, weight target: cli --param_ratio_target 0.9, then "
+        "generate with dense caches")
+    reset_kernel_counts()
+    out = run_cli(torch, ckpt, work, ["--param_ratio_target", "0.9",
+                                      "--rank_align", "128"], sizes, device)
+    greedy(torch, out, prompt, latent_kv=False)
+    counts = kernel_counts()
+    log(f"  kernel launches in this run: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    weight = {"counts": counts}
+    step_check(torch, out, prompt, latent_kv=False)
+    del out
+
+    log("main path, KV-cache target: cli --compress_kv_cache "
+        "--kv_cache_ratio_target 0.5, then generate over the latent cache")
+    reset_kernel_counts()
+    out = run_cli(torch, ckpt, work, ["--compress_kv_cache",
+                                      "--kv_cache_ratio_target", "0.5"],
+                  sizes, device)
+    greedy(torch, out, prompt, latent_kv=True)
+    counts = kernel_counts()
+    log(f"  kernel launches in this run: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    kv = {"counts": counts}
+    step_check(torch, out, prompt, latent_kv=True)
+    return weight, kv
+
+
+# ------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="kernels,main")
+    ap.add_argument("--workdir", default="",
+                    help="checkpoint/cache directory (default: a temporary one)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(smi.stdout.strip())
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    from asvd4llm_tpu_torch.ops import _build
+    secs = _build.build()
+    log(f"build: {secs:.1f} s for {', '.join(_build.SOURCES)} (nvcc, sm_90a, parallel)")
+    for name, out in _build.build_logs.items():
+        for ln in out.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  ptxas {name}: {ln.strip()}")
+
+    timer = Timer(torch)
+    record: dict = {}
+    launches: dict = {}
+    work = args.workdir or tempfile.mkdtemp(prefix="asvd_smoke_")
+    try:
+        if "kernels" in phases:
+            phase_kernels(torch, timer, record)
+        if "main" in phases:
+            log(f"main path sizes: {MAIN_SIZES}, decode batch {DECODE_BATCH}, "
+                f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens")
+            weight, kv = phase_main_path(torch, work, LLAMA2_7B, SMOKE_LAYERS,
+                                         MAIN_SIZES, "cuda:0", launches)
+            if weight["counts"]["fused_lowrank"] <= 0:
+                raise AssertionError("the weight-target main path never launched "
+                                     "the fused_lowrank kernel")
+            if kv["counts"]["latent_attention"] <= 0:
+                raise AssertionError("the KV-target main path never launched "
+                                     "the latent_attention kernel")
+    finally:
+        if not args.workdir:
+            shutil.rmtree(work, ignore_errors=True)
+
+    kernels = []
+    for name in ("fused_lowrank", "latent_attention"):
+        if name in record:
+            row = dict(record[name])
+            row["launches"] = launches.get(name)
+            kernels.append(row)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""The port's CUDA kernels on a card, each held against its plain PyTorch
+version on the same inputs, with its launch counter. Every test here is
+marked `gpu` and skips without a card; on one, run
+
+    python -m pytest tests/test_torch_cuda.py -q -m gpu
+
+This file imports torch and numpy only, so it runs where JAX is absent.
+
+Tolerances: float32 atol/rtol 1e-4 (the kernels sum in another order, with
+split-K atomics); bfloat16 2e-2 (one rounding of the output, half an ulp is
+4e-3 relative, plus the rounding of t or p before the second product).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from asvd4llm_tpu_torch.ops import fused_lowrank as fl  # noqa: E402
+from asvd4llm_tpu_torch.ops import latent_attention as la  # noqa: E402
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _randn(rng, *shape, scale=1.0):
+    return rng.randn(*shape).astype(np.float32) * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,R,bias", [
+    (1, 4096, 4096, 1920, True),      # Llama-2-7B q_proj at ratio 0.9
+    (4, 11008, 4096, 2688, False),    # down_proj, decode batch 4
+    (3, 300, 200, 50, True),          # K and R not multiples of 8
+    (4, 129, 67, 5, False),           # odd everything
+    (16, 256, 512, 64, True),         # the largest decode-path M
+    (17, 256, 130, 40, True),         # the smallest tiled-path M
+    (200, 512, 300, 96, False),
+    (5, 264, 100, 24, True),          # K, N, R multiples of 8 but not of the tiles
+    (70, 264, 100, 24, False),
+    (1024, 512, 256, 128, True),      # the largest fused M
+])
+@pytest.mark.parametrize("x_offset", [0, 1])
+def test_fused_lowrank_kernel_matches_plain(cuda, dtype, M, K, N, R, bias, x_offset):
+    """x_offset 1 starts x one element past a 16-byte boundary, which sends
+    the bf16 products from the tensor cores to the CUDA-core forms."""
+    rng = np.random.RandomState(M + K)
+    dt = getattr(torch, dtype)
+    x_vals = torch.from_numpy(_randn(rng, M, K)).to(cuda, dt)
+    x = torch.empty(M * K + x_offset, dtype=dt, device=cuda)[x_offset:].view(M, K)
+    x.copy_(x_vals)
+    a = torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda, dt)
+    b = torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda, dt)
+    bv = torch.from_numpy(_randn(rng, N, scale=0.1)).to(cuda, dt) if bias else None
+    n0 = fl.fused_lowrank_apply.launches
+    out = fl.fused_lowrank_apply(x, a, b, bv)
+    torch.cuda.synchronize()
+    assert fl.fused_lowrank_apply.launches == n0 + 1
+    assert out.dtype == dt and out.shape == (M, N)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), fl.fused_lowrank_reference(x, a, b, bv).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_fused_lowrank_large_m_and_bad_inputs(cuda):
+    """Above MAX_FUSED_TOKENS the op is two plain matmuls (no launch); an
+    input the kernel does not take raises instead of falling back."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(_randn(rng, 40, 64)).to(cuda)
+    a = torch.from_numpy(_randn(rng, 48, 8)).to(cuda)
+    b = torch.from_numpy(_randn(rng, 8, 64)).to(cuda)
+    n0 = fl.fused_lowrank_apply.launches
+    fl.fused_lowrank_apply(x, a, b, None, max_tokens=16)
+    assert fl.fused_lowrank_apply.launches == n0
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_lowrank_apply(x, a.t().contiguous().t(), b, None)
+    with pytest.raises(TypeError):
+        fl.fused_lowrank_apply(x, a.to(torch.bfloat16), b, None)
+    with pytest.raises(TypeError):
+        fl.fused_lowrank_apply(x.half(), a.half(), b.half(), None)
+
+
+LATENT_CASES = {
+    # name: (B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding)
+    "mha_full": (2, 8, 8, 128, 96, 200, 160, 95, 0.0, 0),
+    "gqa4_mid": (2, 16, 4, 128, 80, 96, 72, 50, 0.0, 0),
+    "softcap_hd64": (1, 8, 2, 64, 70, 48, 40, 69, 20.0, 0),
+    "sliding_hd256": (2, 4, 2, 256, 100, 64, 33, 90, 0.0, 33),
+    "t_not_tile_multiple": (3, 4, 4, 128, 45, 37, 29, 44, 0.0, 0),
+    "rep16": (1, 16, 1, 64, 64, 32, 24, 63, 0.0, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(LATENT_CASES))
+def test_latent_attention_kernel_matches_plain(cuda, dtype, case):
+    B, H, KV, hd, T, Rk, Rv, pos, cap, sw = LATENT_CASES[case]
+    rng = np.random.RandomState(len(case))
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(_randn(rng, B, H, hd)).to(cuda, dt)
+    tk = torch.from_numpy(_randn(rng, B, T, Rk, scale=0.3)).to(cuda, dt)
+    tv = torch.from_numpy(_randn(rng, B, T, Rv, scale=0.3)).to(cuda, dt)
+    a_k = torch.from_numpy(_randn(rng, KV * hd, Rk, scale=Rk ** -0.5)).to(cuda, dt)
+    inv = 1.0 / (10000.0 ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    fr = np.arange(T, dtype=np.float32)[:, None] * inv[None, :]
+    emb = np.concatenate([fr, fr], axis=-1)
+    cos = torch.from_numpy(np.cos(emb)).to(cuda)
+    sin = torch.from_numpy(np.sin(emb)).to(cuda)
+    kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+    n0 = la.latent_decode_attention.launches
+    out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos, **kw)
+    torch.cuda.synchronize()
+    assert la.latent_decode_attention.launches == n0 + 1
+    assert out.dtype == torch.float32 and out.shape == (B, H, Rv)
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        out, la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw),
+        atol=tol, rtol=tol)
+
+
+def _tiny_lowrank_llama(device):
+    """A 2-layer Llama with low-rank q/k/v/down leaves, f32 on `device`."""
+    from asvd4llm_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+    from asvd4llm_tpu_torch.models.init import init_params
+    from asvd4llm_tpu_torch.models.registry import get_linear, lowrank_leaf, set_linear
+    from asvd4llm_tpu_torch.models.spec import llama_spec
+    from asvd4llm_tpu_torch.ops.asvd import factorize_linear
+
+    spec = llama_spec(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
+                      max_position_embeddings=64)
+    params = init_params(spec, torch.Generator().manual_seed(0), dtype=torch.float32)
+    for i in range(2):
+        for key in ("q_proj", "k_proj", "v_proj", "down_proj"):
+            name = f"model.layers.{i}.{'mlp' if key == 'down_proj' else 'self_attn'}.{key}"
+            leaf = get_linear(params, spec, name)
+            f = factorize_linear(leaf["w"], leaf["b"], 0.6, backend="exact")
+            params = set_linear(params, spec, name, lowrank_leaf(f.A, f.B, f.bias))
+    return params_from_numpy(params_to_numpy(params), device=device), spec
+
+
+def decode_step_kernels_vs_plain(device):
+    """(fused logits, plain logits, launches of each kernel) per cache mode
+    for one decode step of the tiny model after a 9-token prefill."""
+    from asvd4llm_tpu_torch.eval.generate import decode_step, init_caches, prefill_host
+
+    params, spec = _tiny_lowrank_llama(device)
+    ids = torch.randint(0, 128, (2, 9), generator=torch.Generator().manual_seed(1))
+    ids = ids.to(device)
+    out = {}
+    for latent in (False, "kv"):
+        caches = init_caches(params, spec, 2, 12, torch.float32, latent=latent)
+        _, caches = prefill_host(params, spec, ids, caches, latent=latent)
+        tok = ids[:, -1:]
+        c1 = [{k: v.clone() for k, v in c.items()} for c in caches]
+        n1, n2 = fl.fused_lowrank_apply.launches, la.latent_decode_attention.launches
+        fused, _ = decode_step(params, spec, tok, c1, 9, use_pallas=True)
+        launched = (fl.fused_lowrank_apply.launches - n1,
+                    la.latent_decode_attention.launches - n2)
+        plain, _ = decode_step(params, spec, tok, caches, 9, use_pallas=False)
+        out[latent] = (fused, plain, launched)
+    return out
+
+
+@pytest.mark.gpu
+def test_decode_step_with_kernels_on_card(cuda):
+    """A decode step with the kernels agrees with the plain tensor path in
+    f32, and launched kernel 1 on every low-rank leaf and kernel 2 on each
+    latent layer."""
+    for latent, (fused, plain, (n_fused, n_latent)) in \
+            decode_step_kernels_vs_plain(cuda).items():
+        assert n_fused == 8 - (4 if latent == "kv" else 0)
+        assert n_latent == (2 if latent == "kv" else 0)
+        torch.testing.assert_close(fused, plain, atol=1e-4, rtol=1e-4)
