@@ -55,8 +55,8 @@ class ASVDConfig:
     # datautils.py:84-89,134), rendering every sample as the same literal
     # string; False replicates that, True substitutes for real
     fixed_alpaca_template: bool = False
-    # -- quantization (still to port, ROADMAP queues 1-2: pipeline.py
-    # raises for any value but the defaults) --
+    # -- quantization: fake-quant evaluation (weight_quant) or real int8 /
+    # int4 factors served by the fused quantized kernels (deploy_*) --
     weight_quant: str = "none"
     deploy_int8_factors: bool = False
     deploy_int4_factors: bool = False
@@ -88,7 +88,8 @@ class ASVDConfig:
     scan_resume_path: str = ""
     max_host_rss_gb: float = -1.0
     # run the hand-written CUDA kernels (ops/fused_lowrank.py,
-    # ops/latent_attention.py) where the forward meets low-rank leaves; the
+    # ops/fused_lowrank_q.py, ops/latent_attention.py) where the forward
+    # meets low-rank or quantized low-rank leaves; the
     # name is the JAX package's. The CLI defaults it to True when a CUDA
     # card is present (config_from_args).
     use_pallas: bool = False

@@ -46,48 +46,32 @@
 //   The products of two bf16 values are exact in f32, so the tensor-core
 //   paths differ from the plain version only in the order of the sums.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include <algorithm>
+#include "lowrank_common.cuh"
 
 namespace {
 
-constexpr int kSms = 132;
+using lrq::aligned16;
+using lrq::cdiv;
+using lrq::from_f32;
+using lrq::k_chunk_for;
+using lrq::mma16816;
+using lrq::pack_bf16;
+using lrq::to_f32;
+using lrq::warp_sum;
+
 constexpr int kGemvMaxM = 16;  // M at or below it takes the decode forms
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // X's value rounded to W's type (the identity where the types agree; stage
 // 2 of a bf16 call reads the f32 t and must see `t.astype(a.dtype)`).
 template <typename TW, typename TX>
 __device__ __forceinline__ float x_as_w(TX v) { return to_f32(from_f32<TW>(to_f32(v))); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // ------------------------------------------------------- tensor-core forms
 
 // Eight consecutive values at p as eight bf16 in 16 bytes; f32 values are
 // rounded to nearest even.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 __device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
@@ -96,16 +80,6 @@ __device__ __forceinline__ uint4 load8_bf16(const float* p) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
                     pack_bf16(b.z, b.w));
-}
-
-// c += A(16x16, row) · B(16x8, col), bf16 in, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 constexpr int kSkinnyWarps = 4;                 // each warp owns 16 rows of W
@@ -414,26 +388,7 @@ gemv_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
     }
 }
 
-// y = round(acc + bias), bias may be null.
-template <typename T>
-__global__ void finalize(const float* __restrict__ acc, const T* __restrict__ bias,
-                         T* __restrict__ y, int M, int N) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  float v = acc[i];
-  if (bias != nullptr) v += to_f32(bias[i % N]);
-  y[i] = from_f32<T>(v);
-}
-
 // ---------------------------------------------------------------- launches
-
-// Split the reduction so that the grid holds about `per_sm` blocks per SM,
-// in chunks that are a multiple of `step` and at least `min_steps` steps.
-int k_chunk_for(int K, int base_blocks, int per_sm, int step, int min_steps) {
-  int splits = cdiv(per_sm * kSms, base_blocks);
-  splits = std::max(1, std::min(splits, cdiv(K, min_steps * step)));
-  return cdiv(cdiv(K, splits), step) * step;
-}
 
 template <typename TX, typename TW, int MM, int VEC>
 void launch_gemv_mm(const TX* X, const TW* W, float* acc, int M, int N, int K,
@@ -451,8 +406,6 @@ void launch_gemv(const TX* X, const TW* W, float* acc, int M, int N, int K,
   else if (M <= 8) launch_gemv_mm<TX, TW, 8, VEC>(X, W, acc, M, N, K, stream);
   else launch_gemv_mm<TX, TW, 16, VEC>(X, W, acc, M, N, K, stream);
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // acc[M, N] += X · Wᵀ on the CUDA cores (f32 W).
 template <typename TX>
@@ -509,7 +462,8 @@ int run(const T* x, const T* b, const T* a, const T* bias, T* y, float* scratch,
   launch_nt<T>(x, b, t, M, R, K, stream);          // t = x · Bᵀ
   launch_nt<float>(t, a, y_acc, M, N, R, stream);  // y = T(t) · Aᵀ
   const size_t total = (size_t)M * N;
-  finalize<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(y_acc, bias, y, M, N);
+  lrq::finalize_bias<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(y_acc, bias, y,
+                                                                            M, N);
   return (int)cudaGetLastError();
 }
 

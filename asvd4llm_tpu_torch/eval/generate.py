@@ -10,10 +10,12 @@ projections are low-rank, the ``"kv"`` cache holds the rank-dim latents
   does not commute with the up-projection).
 
 With ``use_pallas`` (the JAX package's name for "run the fused kernels") a
-decode step sends every low-rank linear through ops/fused_lowrank.py and
+decode step sends every low-rank linear through ops/fused_lowrank.py,
+every int8 or int4 deployment leaf through ops/fused_lowrank_q.py and
 every ``"kv"`` latent layer with RoPE and no k bias through
 ops/latent_attention.py: hand-written CUDA on a CUDA tensor, their plain
-versions on the CPU.
+versions on the CPU. A quantized k/v leaf has no ``"A"`` factor, so its
+layer keeps a dense cache, as in the JAX package.
 
 Caches are updated in place (the JAX package returns new arrays): a
 decode step writes one position of each layer's cache and returns the same
@@ -29,12 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from asvd4llm_tpu_torch.models.decoder import (
-    activation, apply_lm_head, apply_norm, apply_rope, attn_scale,
+    activation, apply_linear, apply_lm_head, apply_norm, apply_rope, attn_scale,
     causal_mask, embed, final_hidden, forward_hidden, layer_applier,
     rope_cos_sin,
 )
 from asvd4llm_tpu_torch.models.registry import is_lowrank
-from asvd4llm_tpu_torch.ops.lowrank import dense_apply, lowrank_apply
 
 NEG = -1e30
 
@@ -88,14 +89,7 @@ def init_caches(params, spec, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _apply_leaf(leaf, x, up=False):
-    if is_lowrank(leaf):
-        return lowrank_apply(x, leaf["A"], leaf["B"], leaf["b"],
-                             use_pallas=up)
-    if "w" not in leaf:
-        raise NotImplementedError(
-            "quantized low-rank leaves (q8/q4) need the fused quantized "
-            "kernels, still to port (ROADMAP queue 2)")
-    return dense_apply(x, leaf["w"], leaf["b"])
+    return apply_linear(leaf, x, use_pallas=up)
 
 
 def _latent(leaf, x):

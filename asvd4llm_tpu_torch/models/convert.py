@@ -22,13 +22,21 @@ def _to_tensor(arr, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+# scales and zero points of the q8/q4 deployment leaves: always f32 (a bf16
+# scale would shift every dequantized weight)
+QUANT_SCALE_KEYS = frozenset({"Asc", "Azp", "Azs", "Bsc", "Bzp", "Bzs"})
+
+
 def params_from_numpy(tree, spec=None, *, dtype=torch.float32, device="cpu"):
     """Numpy params pytree -> port params: floating arrays become ``dtype``
-    tensors on ``device``, integer arrays keep their type; dicts, lists,
-    tuples and None keep their places. ``spec`` is accepted for symmetry
-    with the loaders and not needed by the conversion."""
+    tensors on ``device`` (quantized leaves' scales and zeros f32 whatever
+    ``dtype`` is), integer arrays keep their type; dicts, lists, tuples and
+    None keep their places. ``spec`` is accepted for symmetry with the
+    loaders and not needed by the conversion."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dtype=dtype, device=device)
+        return {k: params_from_numpy(
+                    v, dtype=torch.float32 if k in QUANT_SCALE_KEYS else dtype,
+                    device=device)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, dtype=dtype, device=device)

@@ -98,18 +98,39 @@ def _accumulate_stats(stats, name, x, collect):
 
 def apply_linear(leaf, x, *, name=None, stats=None, collect=None,
                  use_pallas=False):
-    """Apply a dense or low-rank linear leaf; optionally accumulate
-    calibration statistics of its INPUT (ref act_aware_utils.py:64-74)."""
+    """Apply a dense, low-rank or quantized low-rank linear leaf; optionally
+    accumulate calibration statistics of its INPUT (ref
+    act_aware_utils.py:64-74)."""
     if stats is not None and collect is not None and name is not None:
         _accumulate_stats(stats, name, x, collect)
     if is_q4_lowrank(leaf) or is_q8_lowrank(leaf):
-        raise NotImplementedError(
-            "quantized low-rank leaves (q8/q4) need the fused quantized "
-            "kernels, still to port (ROADMAP queue 2)")
+        return _apply_quantized(leaf, x, use_pallas)
     if is_lowrank(leaf):
         return lowrank_apply(x, leaf["A"], leaf["B"], leaf["b"],
                              use_pallas=use_pallas)
     return dense_apply(x, leaf["w"], leaf["b"])
+
+
+def _apply_quantized(leaf, x, use_pallas):
+    """A q8 or q4 deployment leaf: the fused quantized kernels with
+    ``use_pallas`` (the JAX package always takes them), else dequantize +
+    two plain matmuls (what the JAX package runs off the accelerator)."""
+    from asvd4llm_tpu_torch.ops.fused_lowrank import MAX_FUSED_TOKENS
+    from asvd4llm_tpu_torch.ops.fused_lowrank_q import (
+        fused_lowrank_apply_q4, fused_lowrank_apply_q8,
+    )
+    from asvd4llm_tpu_torch.ops.quant import QuantParams
+
+    max_tokens = MAX_FUSED_TOKENS if use_pallas else 0
+    if is_q4_lowrank(leaf):
+        group = leaf["B4"].shape[1] * 2 // leaf["Bsc"].shape[1]
+        return fused_lowrank_apply_q4(x, leaf["A4"], leaf["Asc"], leaf["Azs"],
+                                      leaf["B4"], leaf["Bsc"], leaf["Bzs"],
+                                      leaf["b"], group=group,
+                                      max_tokens=max_tokens)
+    return fused_lowrank_apply_q8(x, leaf["A8"], QuantParams(leaf["Asc"], leaf["Azp"], 255),
+                                  leaf["B8"], QuantParams(leaf["Bsc"], leaf["Bzp"], 255),
+                                  leaf["b"], max_tokens=max_tokens)
 
 
 def activation(spec, x):

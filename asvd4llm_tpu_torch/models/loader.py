@@ -18,7 +18,8 @@ import torch
 
 from asvd4llm_tpu_torch.device import resolve_device
 from asvd4llm_tpu_torch.models.registry import (
-    dense_leaf, layer_linear_keys, lowrank_leaf,
+    dense_leaf, layer_linear_keys, lowrank_leaf, q4_lowrank_leaf,
+    q8_lowrank_leaf,
 )
 from asvd4llm_tpu_torch.models.spec import DecoderSpec, spec_from_hf_config
 
@@ -63,8 +64,9 @@ HF_LAYOUTS["gemma"] = HF_LAYOUTS["llama"]
 def params_from_state_dict(sd: dict, spec: DecoderSpec, *, dtype=torch.bfloat16,
                            device="cpu") -> dict:
     """{HF name: numpy array} -> port params, tensors of ``dtype`` on
-    ``device``. Dense linears and factored ones (``<name>.ALinear`` /
-    ``.BLinear``, bias on ALinear) load; quantized ones raise."""
+    ``device``. Dense linears, factored ones (``<name>.ALinear`` /
+    ``.BLinear``, bias on ALinear) and int8 / packed-int4 factored ones
+    (``<name>.A_qweight`` ..., bias on ``<name>.bias``) load."""
     if isinstance(dtype, str):
         dtype = DTYPES[dtype]
     layout = HF_LAYOUTS[spec.family]
@@ -76,6 +78,10 @@ def params_from_state_dict(sd: dict, spec: DecoderSpec, *, dtype=torch.bfloat16,
     def opt_t(name):
         return t(name) if name in sd else None
 
+    def raw(name, dt):
+        return torch.from_numpy(np.ascontiguousarray(sd[name])).to(
+            device=device, dtype=dt)
+
     def linear(prefix):
         if f"{prefix}.weight" in sd:
             return dense_leaf(t(f"{prefix}.weight"), opt_t(f"{prefix}.bias"))
@@ -83,10 +89,24 @@ def params_from_state_dict(sd: dict, spec: DecoderSpec, *, dtype=torch.bfloat16,
             return lowrank_leaf(t(f"{prefix}.ALinear.weight"),
                                 t(f"{prefix}.BLinear.weight"),
                                 opt_t(f"{prefix}.ALinear.bias"))
+        # int8 / packed-int4 factors (the JAX package's hf_repo.py buffer
+        # names): codes keep their integer type, scales stay f32
+        if f"{prefix}.A_scale" in sd:
+            return q8_lowrank_leaf(raw(f"{prefix}.A_qweight", torch.int8),
+                                   raw(f"{prefix}.A_scale", torch.float32),
+                                   raw(f"{prefix}.A_zero", torch.float32),
+                                   raw(f"{prefix}.B_qweight", torch.int8),
+                                   raw(f"{prefix}.B_scale", torch.float32),
+                                   raw(f"{prefix}.B_zero", torch.float32),
+                                   opt_t(f"{prefix}.bias"))
         if f"{prefix}.A_qweight" in sd:
-            raise NotImplementedError(
-                f"{prefix}: quantized factors need the fused quantized "
-                "kernels, still to port (ROADMAP queue 2)")
+            return q4_lowrank_leaf(raw(f"{prefix}.A_qweight", torch.uint8),
+                                   raw(f"{prefix}.A_scales", torch.float32),
+                                   raw(f"{prefix}.A_zero_scales", torch.float32),
+                                   raw(f"{prefix}.B_qweight", torch.uint8),
+                                   raw(f"{prefix}.B_scales", torch.float32),
+                                   raw(f"{prefix}.B_zero_scales", torch.float32),
+                                   opt_t(f"{prefix}.bias"))
         raise KeyError(f"no weights for linear {prefix!r} in state dict")
 
     def norm(prefix):

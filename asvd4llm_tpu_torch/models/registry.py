@@ -9,6 +9,7 @@ dict and substitution is functional (shallow copies, tensors shared).
 Leaf encodings (structure, not tags):
   dense:    {"w": [out, in], "b": [out] | None}
   lowrank:  {"A": [out, rank], "B": [rank, in], "b": [out] | None}
+  q8 / q4:  the deployment formats below (q8_lowrank_leaf, q4_lowrank_leaf)
 
 Full names follow HF module naming so sensitivity dicts and rank manifests
 read like the reference's (e.g. "model.layers.3.self_attn.q_proj",
@@ -34,8 +35,9 @@ def is_lowrank(leaf: dict) -> bool:
 
 def q8_lowrank_leaf(a8, a_scale, a_zero, b8, b_scale, b_zero, bias=None
                     ) -> dict:
-    """Int8-quantized low-rank leaf: factor codes + per-row (scale, zero).
-    Data only here: its fused kernel is still to port (ROADMAP queue 2)."""
+    """Int8-quantized low-rank leaf: factor codes + per-row (scale, zero),
+    f32 [rows, 1]. The deployment format of the fused q8 kernel
+    (ops/fused_lowrank_q.py)."""
     return {"A8": a8, "Asc": a_scale, "Azp": a_zero,
             "B8": b8, "Bsc": b_scale, "Bzp": b_zero, "b": bias}
 
@@ -47,8 +49,8 @@ def is_q8_lowrank(leaf: dict) -> bool:
 def q4_lowrank_leaf(a4, a_scale, a_zscale, b4, b_scale, b_zscale, bias=None
                     ) -> dict:
     """Int4-packed low-rank leaf: 2 codes/byte + per-(row, group) scales
-    (data only here: its fused kernel is still to port, ROADMAP queue 2;
-    the reference's analogue is the AWQ w4 GEMM path, ref quantization.py:269).
+    (deployment format of the fused q4 kernel, ops/fused_lowrank_q.py; the
+    reference's analogue is the AWQ w4 GEMM path, ref quantization.py:269).
     A4: [N, Rp/2] uint8, Asc/Azs: [N, Rp/group];
     B4: [Rp, Kp/2] uint8, Bsc/Bzs: [Rp, Kp/group]."""
     return {"A4": a4, "Asc": a_scale, "Azs": a_zscale,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/`` (listed in
-``.gitignore``). The library name carries a hash of the source and the
-flags, so an edited source rebuilds on its next use. Nothing is built when a
+``.gitignore``). The library name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds on its next use. Nothing is built when a
 module is imported: the first call that launches a kernel builds it, and
 ``build()`` builds every missing library at once, one ``nvcc`` per source,
 all started together.
@@ -12,6 +13,7 @@ all started together.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -22,7 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("fused_lowrank", "latent_attention")
+SOURCES = ("fused_lowrank", "latent_attention", "fused_lowrank_q8",
+           "fused_lowrank_q4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,9 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,9 +1,9 @@
 """End-to-end compression pipeline (ref asvd.py:14-78).
 
 Counterpart of asvd4llm_tpu/pipeline.py: load -> calib data -> abs stats ->
-sensitivity -> binary search -> evaluate -> append results. Options that
-this slice does not cover raise NotImplementedError naming their ROADMAP
-queue.
+sensitivity -> binary search -> [quantize] -> evaluate -> append results.
+Options that the port does not cover yet raise NotImplementedError naming
+their ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -49,14 +49,11 @@ def phase(times: dict, name: str, device=None):
 
 
 def check_supported(cfg: ASVDConfig) -> None:
-    """Raise for configuration values this slice of the port does not run."""
+    """Raise for configuration values the port does not run yet."""
     unsupported = [
         ("fisher" in cfg.scaling_method,
          f"scaling_method={cfg.scaling_method!r} (Fisher scaling)", 1),
         (cfg.calib_dataset == "selfgen", "calib_dataset='selfgen'", 1),
-        (cfg.weight_quant != "none", f"weight_quant={cfg.weight_quant!r}", 2),
-        (cfg.deploy_int8_factors, "deploy_int8_factors", 2),
-        (cfg.deploy_int4_factors, "deploy_int4_factors", 2),
         (int(np.prod(cfg.mesh_shape)) > 1, f"mesh_shape={cfg.mesh_shape}", 3),
         (bool(cfg.scan_resume_path) or cfg.max_host_rss_gb > 0,
          "host residency (scan_resume_path / max_host_rss_gb)", 1),
@@ -105,14 +102,32 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
         compressed, manifest = binary_search_truncation_rank(
             params, spec, sensitivity, calib_loader, cfg, stats=stats)
 
+    if cfg.weight_quant != "none":
+        from asvd4llm_tpu_torch.ops.quant_apply import quantize_model_weights
+        with phase(times, "weight_quant", dev):
+            compressed = quantize_model_weights(compressed, spec,
+                                                cfg.weight_quant, stats=stats)
+
+    if cfg.deploy_int8_factors:
+        from asvd4llm_tpu_torch.ops.quant_apply import quantize_lowrank_factors_int8
+        with phase(times, "deploy_int8", dev):
+            compressed = quantize_lowrank_factors_int8(compressed, spec)
+
+    if cfg.deploy_int4_factors:
+        from asvd4llm_tpu_torch.ops.quant_apply import quantize_lowrank_factors_int4
+        with phase(times, "deploy_int4", dev):
+            compressed = quantize_lowrank_factors_int4(
+                compressed, spec, group=cfg.int4_group_size, stats=stats)
+
     artifacts = {"stats": stats, "sensitivity": sensitivity,
                  "calib_loader": calib_loader}
     return compressed, manifest, artifacts
 
 
 def evaluate(params, spec, tokenizer, cfg: ASVDConfig, *, times=None) -> dict:
-    """PPL on the cfg.eval_ppl datasets, low-rank leaves through the fused
-    kernel when cfg.use_pallas. Phase seconds go into ``times`` when given."""
+    """PPL on the cfg.eval_ppl datasets, low-rank and quantized leaves
+    through the fused kernels when cfg.use_pallas. Phase seconds go into
+    ``times`` when given."""
     check_supported(cfg)
     times = {} if times is None else times
     results: dict = {}

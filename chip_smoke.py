@@ -12,8 +12,11 @@ Phases:
            layers); run the port's CLI with a parameter-ratio target, then
            greedy-decode the compressed model with use_pallas=True over
            dense caches; run the CLI with a KV-cache target on the same
-           checkpoint, then greedy-decode over the realized latent cache.
-           Each run's kernel launches are counted from 0 and must be > 0.
+           checkpoint, then greedy-decode over the realized latent cache;
+           run the CLI with the weight target again with int8 and with int4
+           deployed factors, each followed by greedy decode, and once with
+           AWQ int4 fake-quant (PPL only). Each run's kernel launches are
+           counted from 0; the kernel each run exists for must be > 0.
 
 Exits non-zero without a CUDA device, and when any phase fails. The last
 line of standard output is the device record
@@ -66,9 +69,10 @@ def log(msg):
 
 class Timer:
     """Device time of a callable: the sum of the GPU activities (kernels,
-    memsets, copies) that torch.profiler's CUPTI trace records for it, per
-    call, with the L2 flushed before every call (a decode step finds each
-    layer's weights cold). The flush reads 128 MB and writes nothing large,
+    memsets, copies) that torch.profiler's CUPTI trace records for it, the
+    median over the timed calls (one slow call, such as the first after a
+    clock change, does not move it), with the L2 flushed before every call
+    (a decode step finds each layer's weights cold). The flush reads 128 MB and writes nothing large,
     so it leaves the L2 holding clean lines, as the previous layer's weights
     would: a flush that wrote would make every timed call pay for writing
     its lines back. One stream runs everything, so the trace in start order
@@ -82,15 +86,17 @@ class Timer:
         self.flush = buf.max
         self.method = None
 
-    def _trace(self, run):
+    def _trace(self, run, names=False):
+        """The GPU activities of `run` in start order: their us, or (name,
+        us) pairs."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             self.torch.cuda.synchronize()
-        acts = [(e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
-        return [us for _, us in sorted(acts)]
+        acts = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                      for e in prof.events() if e.device_type == DeviceType.CUDA)
+        return [(name, us) if names else us for _, name, us in acts]
 
     def ms(self, fn, iters=10, warmup=2):
         torch = self.torch
@@ -107,11 +113,11 @@ class Timer:
         acts = self._trace(run)
         per_call = len(acts) // iters
         if acts and per_call > n_flush and len(acts) == per_call * iters:
-            self.method = "device time from the profiler trace"
-            return sum(us for i, us in enumerate(acts)
-                       if i % per_call >= n_flush) / 1e3 / iters
-        self.method = "CUDA events around each call"
-        total = 0.0
+            self.method = "device time from the profiler trace, median of calls"
+            return float(np.median([sum(acts[c * per_call + n_flush:(c + 1) * per_call])
+                                    for c in range(iters)])) / 1e3
+        self.method = "CUDA events around each call, median of calls"
+        times = []
         for _ in range(iters):
             self.flush()
             s = torch.cuda.Event(enable_timing=True)
@@ -120,8 +126,29 @@ class Timer:
             fn()
             e.record()
             torch.cuda.synchronize()
-            total += s.elapsed_time(e)
-        return total / iters
+            times.append(s.elapsed_time(e))
+        return float(np.median(times))
+
+
+    def by_activity(self, fn, iters=5):
+        """Device us per call of each GPU activity of `fn` by kernel name,
+        for flushed calls (the flush's activities dropped by position, as
+        in `ms`)."""
+        n_flush = len(self._trace(self.flush, names=True))
+
+        def run():
+            for _ in range(iters):
+                self.flush()
+                fn()
+        acts = self._trace(run, names=True)
+        per_call = len(acts) // iters
+        out: dict = {}
+        for i, (name, us) in enumerate(acts):
+            if i % per_call >= n_flush:
+                short = name.replace("(anonymous namespace)::", "").replace("void ", "")
+                short = short.split("(")[0].strip() or name[:40]
+                out[short] = out.get(short, 0.0) + us / iters
+        return out
 
 
 def bound(nbytes, flops, dtype):
@@ -272,22 +299,170 @@ def phase_kernels(torch, timer, record):
         **main,
         "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16",
     }
+    phase_quant_kernels(torch, timer, record, failures)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
 
 
-def kernel_counts():
+Q4_GROUP = 128
+
+
+def quantize_factors(torch, kind, a, b):
+    """The q8 or q4 deployment form of one low-rank leaf's factors, as
+    ops/quant_apply.py makes it (q4 without the AWQ fold)."""
+    from asvd4llm_tpu_torch.ops.quant import quantize_to_int, quantize_to_int4_grouped
+    if kind == "q8":
+        a8, aq = quantize_to_int(a, 8)
+        b8, bq = quantize_to_int(b, 8)
+        return a8, aq, b8, bq
+    a4, asc, azs = quantize_to_int4_grouped(a, group=Q4_GROUP)
+    b4, bsc, bzs = quantize_to_int4_grouped(b, group=Q4_GROUP)
+    pad = a4.shape[1] * 2 - b4.shape[0]
+    b4, bsc, bzs = (torch.nn.functional.pad(v, (0, 0, 0, pad)) for v in (b4, bsc, bzs))
+    return a4, asc, azs, b4, bsc, bzs
+
+
+def q_apply(kind, x, q, bias, **kw):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    if kind == "q8":
+        return fq.fused_lowrank_apply_q8(x, q[0], q[1], q[2], q[3], bias, **kw)
+    return fq.fused_lowrank_apply_q4(x, *q, bias, group=Q4_GROUP, **kw)
+
+
+def q_reference(kind, x, q, bias):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    if kind == "q8":
+        a8, aq, b8, bq = q
+        return fq.fused_lowrank_q8_reference(x, a8, aq.scale, aq.zero, b8, bq.scale,
+                                             bq.zero, bias)
+    return fq.fused_lowrank_q4_reference(x, *q, bias, group=Q4_GROUP)
+
+
+def q_bytes(kind, q, M, N, K, isz):
+    """Bytes the quantized linear must move: codes, f32 scales and zeros,
+    x, y and the bias, each once."""
+    io = (M * K + M * N + N) * isz
+    if kind == "q8":
+        a8, _, b8, _ = q
+        return a8.numel() + b8.numel() + 8 * (a8.shape[0] + b8.shape[0]) + io
+    return sum(v.numel() * v.element_size() for v in q) + io
+
+
+def phase_quant_kernels(torch, timer, record, failures):
+    """Kernels 3 and 4 at the shapes of kernel 1 (the 7 linears of a
+    Llama-2-7B layer at ratio 0.9, factors quantized by the port): each
+    against its plain version; in bf16, its time beside its bound, its
+    plain version, the dequantize + two matmuls yardstick (what the JAX
+    package runs above 1024 tokens) and kernel 1 on the same factors
+    dequantized to bf16."""
     from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tol = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+    for kind, name, tpu_line, what in (
+            ("q8", "fused_lowrank_q8", "asvd4llm_tpu/ops/pallas_lowrank.py:217",
+             "int8 codes, per-row scale and zero"),
+            ("q4", "fused_lowrank_q4", "asvd4llm_tpu/ops/pallas_lowrank.py:371",
+             f"packed 4-bit codes, group {Q4_GROUP}, R and K padded to 512")):
+        log(f"kernel {name}: y = (x·dq(B)ᵀ)·dq(A)ᵀ + bias ({what}) vs its plain version")
+        keys = ("ms", "plain_ms", "yardstick_ms", "kernel1_ms", "bound_ms", "bytes", "flops")
+        sums = dict.fromkeys(keys, 0.0)
+        err_main = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol = tol[dtype]
+            shapes = KERNEL1_SHAPES if dtype == torch.bfloat16 else KERNEL1_SHAPES[:1]
+            for M in (1, DECODE_BATCH, 16, 1024):
+                for lin, N, K, R in shapes:
+                    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+                    a = torch.randn(N, R, generator=g, device="cuda") * R ** -0.5
+                    b = torch.randn(R, K, generator=g, device="cuda") * K ** -0.5
+                    bias = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
+                    q = quantize_factors(torch, kind, a.to(dtype), b.to(dtype))
+                    out = q_apply(kind, x, q, bias)
+                    ref = q_reference(kind, x, q, bias)
+                    torch.cuda.synchronize()
+                    err, med_rel = max_err(out, ref)
+                    ok = within(out, ref, atol, rtol)
+                    line = (f"  {str(dtype)[6:]:8s} M={M:4d} {lin:9s} N={N} K={K} R={R}"
+                            f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                            f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"{name} {dtype} M={M} {lin}")
+                    if dtype == torch.bfloat16:
+                        rank = q[2].shape[0] if kind == "q8" else q[3].shape[0]
+                        nbytes = q_bytes(kind, q, M, N, K, x.element_size())
+                        flops = 2 * M * rank * (K + N)
+                        bms, by = bound(nbytes, flops, dtype)
+                        a_dq, b_dq = (v.to(dtype) for v in _dequantized(kind, q, K))
+                        k_ms = timer.ms(lambda: q_apply(kind, x, q, bias))
+                        p_ms = timer.ms(lambda: q_reference(kind, x, q, bias))
+                        y_ms = timer.ms(lambda: q_apply(kind, x, q, bias, max_tokens=0))
+                        k1_ms = timer.ms(lambda: fl.fused_lowrank_apply(x, a_dq, b_dq, bias))
+                        line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
+                                 f" dequant+two matmuls {y_ms * 1e3:.1f} us, kernel 1 on bf16"
+                                 f" factors {k1_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
+                                 f" ({by}: {nbytes / 1e6:.1f} MB)")
+                        if M == DECODE_BATCH and lin == "q_proj":
+                            for label, fn in ((name, lambda: q_apply(kind, x, q, bias)),
+                                              ("fused_lowrank", lambda: fl.fused_lowrank_apply(
+                                                  x, a_dq, b_dq, bias))):
+                                acts = timer.by_activity(fn)
+                                log(f"  {label} at q_proj M={M}, device us per call by launch: "
+                                    + ", ".join(f"{n} {us:.1f}" for n, us in acts.items()))
+                        if M == DECODE_BATCH:
+                            for k_, v_ in zip(keys, (k_ms, p_ms, y_ms, k1_ms, bms, nbytes,
+                                                     flops)):
+                                sums[k_] += v_
+                            err_main = max(err_main, err)
+                    log(line)
+        by = "bytes" if sums["bytes"] / HBM_BYTES_PER_S >= \
+            sums["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
+        log(f"  one Llama-2-7B layer's 7 linears at M={DECODE_BATCH} bf16: kernel "
+            f"{sums['ms'] * 1e3:.1f} us, plain {sums['plain_ms'] * 1e3:.1f} us, dequant+two "
+            f"matmuls {sums['yardstick_ms'] * 1e3:.1f} us, kernel 1 on bf16 factors "
+            f"{sums['kernel1_ms'] * 1e3:.1f} us, bound {sums['bound_ms'] * 1e3:.1f} us ({by}: "
+            f"{sums['bytes'] / 1e6:.1f} MB, {sums['flops'] / 1e9:.2f} GFLOP)")
+        record[name] = {
+            "name": name, "route": "cuda",
+            "source": f"asvd4llm_tpu_torch/csrc/{name}.cu", "replaces": tpu_line,
+            "max_abs_err": err_main, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": by, "library_ms": None,
+            "yardstick_ms": sums["yardstick_ms"], "kernel1_ms": sums["kernel1_ms"],
+            "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={DECODE_BATCH}, bf16",
+        }
+
+
+def _dequantized(kind, q, K):
+    """(A, B) of a quantized leaf dequantized in f32, cut to its true dims."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    from asvd4llm_tpu_torch.ops.quant import dequantize
+    if kind == "q8":
+        a8, aq, b8, bq = q
+        return dequantize(a8, aq), dequantize(b8[:, :K], bq)
+    return fq._q4_factors(*q, Q4_GROUP, K, q[1].dtype)
+
+
+KERNEL_NAMES = ("fused_lowrank", "latent_attention", "fused_lowrank_q8", "fused_lowrank_q4")
+
+
+def _counted():
+    """The wrapper that counts each kernel's launches, by kernel name."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
     from asvd4llm_tpu_torch.ops import latent_attention as la
-    return {"fused_lowrank": fl.fused_lowrank_apply.launches,
-            "latent_attention": la.latent_decode_attention.launches}
+    return {"fused_lowrank": fl.fused_lowrank_apply,
+            "latent_attention": la.latent_decode_attention,
+            "fused_lowrank_q8": fq.fused_lowrank_apply_q8,
+            "fused_lowrank_q4": fq.fused_lowrank_apply_q4}
+
+
+def kernel_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def reset_kernel_counts():
-    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
-    from asvd4llm_tpu_torch.ops import latent_attention as la
-    fl.fused_lowrank_apply.launches = 0
-    la.latent_decode_attention.launches = 0
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd):
@@ -427,9 +602,12 @@ def kernels_at_path_shapes(torch, params, spec, caches, pos):
     decode-batch x, and every latent layer on its filled caches with a random
     query at `pos`. Same tolerances as the kernel phase."""
     from asvd4llm_tpu_torch.models.decoder import attn_scale, rope_cos_sin
-    from asvd4llm_tpu_torch.models.registry import is_lowrank, iter_linears
+    from asvd4llm_tpu_torch.models.registry import (
+        is_lowrank, is_q4_lowrank, is_q8_lowrank, iter_linears,
+    )
     from asvd4llm_tpu_torch.ops import fused_lowrank as fl
     from asvd4llm_tpu_torch.ops import latent_attention as la
+    from asvd4llm_tpu_torch.ops.quant import QuantParams
 
     dev = params["embed_tokens"].device
     dtype = params["embed_tokens"].dtype
@@ -437,6 +615,26 @@ def kernels_at_path_shapes(torch, params, spec, caches, pos):
     g = torch.Generator(device=dev).manual_seed(2)
     B = caches[0][next(iter(caches[0]))].shape[0]
     for name, leaf in iter_linears(params, spec, include_extras=True):
+        quant = "q8" if is_q8_lowrank(leaf) else "q4" if is_q4_lowrank(leaf) else None
+        if quant:
+            # x as wide as the path gives it (q4 codes are padded to 512)
+            K = spec.intermediate_size if name.endswith("down_proj") else spec.hidden_size
+            q = (leaf["A8"], QuantParams(leaf["Asc"], leaf["Azp"], 255), leaf["B8"],
+                 QuantParams(leaf["Bsc"], leaf["Bzp"], 255)) if quant == "q8" else \
+                tuple(leaf[k] for k in ("A4", "Asc", "Azs", "B4", "Bsc", "Bzs"))
+            x = torch.randn(B, K, generator=g, device=dev).to(dtype)
+            out = q_apply(quant, x, q, leaf["b"])
+            ref = q_reference(quant, x, q, leaf["b"])
+            sync()
+            err, _ = max_err(out, ref)
+            ok = within(out, ref, 2e-2, 2e-2)
+            log(f"  fused_lowrank_{quant} at {name} (M={B}, N={out.shape[1]}, K={K}, "
+                f"codes {tuple(q[0].shape)} / {tuple(q[2 if quant == 'q8' else 3].shape)}): "
+                f"max_abs_err {err:.3e} tol=atol 0.02 + rtol 0.02 {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused_lowrank_{quant} disagrees with its plain "
+                                     f"version at {name}")
+            continue
         if not is_lowrank(leaf):
             continue
         x = torch.randn(B, leaf["B"].shape[1], generator=g, device=dev).to(dtype)
@@ -503,43 +701,48 @@ def decode_breakdown(torch, run, steps):
         log(f"    {t / steps:.4f} ms/step {100 * t / busy:5.1f}%  {name[:90]}")
 
 
+WEIGHT_TARGET = ["--param_ratio_target", "0.9", "--rank_align", "128"]
+# (run, what it adds to the CLI, cache mode of its decode or None for a
+# PPL-only run, the kernel the run must launch)
+MAIN_RUNS = [
+    ("weight target", WEIGHT_TARGET, False, "fused_lowrank"),
+    ("KV-cache target", ["--compress_kv_cache", "--kv_cache_ratio_target", "0.5"], True,
+     "latent_attention"),
+    ("int8 factors", WEIGHT_TARGET + ["--deploy_int8_factors"], False, "fused_lowrank_q8"),
+    ("int4 factors", WEIGHT_TARGET + ["--deploy_int4_factors", "--int4_group_size",
+                                      str(Q4_GROUP)], False, "fused_lowrank_q4"),
+    ("AWQ int4 fake-quant", WEIGHT_TARGET + ["--weight_quant", "awq_int4"], None, None),
+]
+
+
 def phase_main_path(torch, work, config, layers, sizes, device, launches):
-    """Weight-target and KV-target runs through the CLI, each followed by
-    greedy decode with use_pallas=True. The kernel counts are set to 0
-    just before each run and read just after its decode; `launches`
-    accumulates them per kernel."""
+    """The MAIN_RUNS through the CLI on one checkpoint and cache directory
+    (runs after the first reuse its sensitivity scan), each but the last
+    followed by greedy decode with use_pallas=True and a decode-step check.
+    The kernel counts are set to 0 just before each run and read just after
+    its decode; `launches` accumulates them per kernel. Returns
+    {run: counts}."""
     ckpt = write_checkpoint(work, config, layers)
     prompt = np.random.RandomState(1).randint(
         0, config["vocab_size"], (DECODE_BATCH, PROMPT_LEN))
-
-    log("main path, weight target: cli --param_ratio_target 0.9, then "
-        "generate with dense caches")
-    reset_kernel_counts()
-    out = run_cli(torch, ckpt, work, ["--param_ratio_target", "0.9",
-                                      "--rank_align", "128"], sizes, device)
-    greedy(torch, out, prompt, latent_kv=False)
-    counts = kernel_counts()
-    log(f"  kernel launches in this run: {counts}")
-    for k, v in counts.items():
-        launches[k] = launches.get(k, 0) + v
-    weight = {"counts": counts}
-    step_check(torch, out, prompt, latent_kv=False)
-    del out
-
-    log("main path, KV-cache target: cli --compress_kv_cache "
-        "--kv_cache_ratio_target 0.5, then generate over the latent cache")
-    reset_kernel_counts()
-    out = run_cli(torch, ckpt, work, ["--compress_kv_cache",
-                                      "--kv_cache_ratio_target", "0.5"],
-                  sizes, device)
-    greedy(torch, out, prompt, latent_kv=True)
-    counts = kernel_counts()
-    log(f"  kernel launches in this run: {counts}")
-    for k, v in counts.items():
-        launches[k] = launches.get(k, 0) + v
-    kv = {"counts": counts}
-    step_check(torch, out, prompt, latent_kv=True)
-    return weight, kv
+    counts_by_run = {}
+    for run, flags, latent_kv, _ in MAIN_RUNS:
+        decode = "PPL only" if latent_kv is None else \
+            f"then generate with {'the latent' if latent_kv else 'dense'} caches"
+        log(f"main path, {run}: cli {' '.join(flags)}, {decode}")
+        reset_kernel_counts()
+        out = run_cli(torch, ckpt, work, flags, sizes, device)
+        if latent_kv is not None:
+            greedy(torch, out, prompt, latent_kv=latent_kv)
+        counts = kernel_counts()
+        log(f"  kernel launches in this run: {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        counts_by_run[run] = counts
+        if latent_kv is not None:
+            step_check(torch, out, prompt, latent_kv=latent_kv)
+        del out
+    return counts_by_run
 
 
 # ------------------------------------------------------------------- main
@@ -586,20 +789,18 @@ def main(argv=None) -> int:
         if "main" in phases:
             log(f"main path sizes: {MAIN_SIZES}, decode batch {DECODE_BATCH}, "
                 f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens")
-            weight, kv = phase_main_path(torch, work, LLAMA2_7B, SMOKE_LAYERS,
-                                         MAIN_SIZES, "cuda:0", launches)
-            if weight["counts"]["fused_lowrank"] <= 0:
-                raise AssertionError("the weight-target main path never launched "
-                                     "the fused_lowrank kernel")
-            if kv["counts"]["latent_attention"] <= 0:
-                raise AssertionError("the KV-target main path never launched "
-                                     "the latent_attention kernel")
+            counts = phase_main_path(torch, work, LLAMA2_7B, SMOKE_LAYERS,
+                                     MAIN_SIZES, "cuda:0", launches)
+            for run, _, _, kernel in MAIN_RUNS:
+                if kernel and counts[run][kernel] <= 0:
+                    raise AssertionError(f"the {run} main path never launched the "
+                                         f"{kernel} kernel")
     finally:
         if not args.workdir:
             shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
-    for name in ("fused_lowrank", "latent_attention"):
+    for name in KERNEL_NAMES:
         if name in record:
             row = dict(record[name])
             row["launches"] = launches.get(name)

@@ -182,3 +182,154 @@ def test_decode_step_with_kernels_on_card(cuda):
         assert n_fused == 8 - (4 if latent == "kv" else 0)
         assert n_latent == (2 if latent == "kv" else 0)
         torch.testing.assert_close(fused, plain, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- kernels 3 and 4 (q8, q4)
+
+def _q8_inputs(rng, cuda, dt, M, K, N, R, bias, pad):
+    """x and int8 factors quantized by the port; `pad` widens the code
+    arrays (true N/R/K stay in the scales) as pre-padded leaves arrive."""
+    from asvd4llm_tpu_torch.ops.quant import quantize_to_int
+    x = torch.from_numpy(_randn(rng, M, K)).to(cuda, dt)
+    a8, aq = quantize_to_int(torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda), 8)
+    b8, bq = quantize_to_int(torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda), 8)
+    if pad:
+        a8 = torch.nn.functional.pad(a8, (0, 128 - R % 128, 0, 512 - N % 512))
+        b8 = torch.nn.functional.pad(b8, (0, 512 - K % 512, 0, 128 - R % 128))
+    bv = torch.from_numpy(_randn(rng, N, scale=0.1)).to(cuda, dt) if bias else None
+    return x, a8, aq, b8, bq, bv
+
+
+Q_SHAPES = [  # (M, K, N, R, bias)
+    (1, 4096, 4096, 1920, True),      # Llama-2-7B q_proj at ratio 0.9
+    (4, 11008, 4096, 2688, False),    # down_proj, decode batch 4
+    (16, 512, 1024, 512, True),       # the largest decode-path M
+    (17, 1024, 520, 512, False),      # the smallest tiled-path M
+    (200, 512, 300, 1024, True),
+    (1024, 1024, 512, 512, True),     # the largest fused M
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,R,bias", Q_SHAPES + [
+    (3, 300, 200, 50, True),          # K and R not multiples of 16: CUDA-core forms
+    (40, 264, 100, 24, False),
+])
+@pytest.mark.parametrize("pad", [False, True])
+def test_fused_q8_kernel_matches_plain(cuda, dtype, M, K, N, R, bias, pad):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    rng = np.random.RandomState(M + K + R)
+    dt = getattr(torch, dtype)
+    x, a8, aq, b8, bq, bv = _q8_inputs(rng, cuda, dt, M, K, N, R, bias, pad)
+    n0 = fq.fused_lowrank_apply_q8.launches
+    out = fq.fused_lowrank_apply_q8(x, a8, aq, b8, bq, bv)
+    torch.cuda.synchronize()
+    assert fq.fused_lowrank_apply_q8.launches == n0 + 1
+    assert out.dtype == dt and out.shape == (M, N)
+    ref = fq.fused_lowrank_q8_reference(x, a8, aq.scale, aq.zero, b8, bq.scale, bq.zero, bv)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _q4_inputs(rng, cuda, dt, M, K, N, R, bias, group, pad):
+    """x and packed 4-bit factors quantized by the port (R padded to Rp as
+    quantize_lowrank_factors_int4 does); `pad` adds rows to A4 up to a
+    multiple of 512 as pre-padded leaves arrive."""
+    from asvd4llm_tpu_torch.ops.quant import quantize_to_int4_grouped
+    x = torch.from_numpy(_randn(rng, M, K)).to(cuda, dt)
+    a4, asc, azs = quantize_to_int4_grouped(
+        torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda), group=group)
+    b4, bsc, bzs = quantize_to_int4_grouped(
+        torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda), group=group)
+    rp = a4.shape[1] * 2 - R
+    b4, bsc, bzs = (torch.nn.functional.pad(v, (0, 0, 0, rp)) for v in (b4, bsc, bzs))
+    if pad:
+        a4 = torch.nn.functional.pad(a4, (0, 0, 0, -N % 512))
+    bv = torch.from_numpy(_randn(rng, N, scale=0.1)).to(cuda, dt) if bias else None
+    return x, (a4, asc, azs, b4, bsc, bzs), bv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,R,bias", Q_SHAPES + [
+    (3, 300, 200, 50, True),          # K and R far from the 512 padding
+    (40, 640, 100, 140, False),
+])
+@pytest.mark.parametrize("group,pad", [(128, False), (64, True), (16, False), (256, True)])
+def test_fused_q4_kernel_matches_plain(cuda, dtype, M, K, N, R, bias, group, pad):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    rng = np.random.RandomState(M + K + R + group)
+    dt = getattr(torch, dtype)
+    x, q, bv = _q4_inputs(rng, cuda, dt, M, K, N, R, bias, group, pad)
+    n0 = fq.fused_lowrank_apply_q4.launches
+    out = fq.fused_lowrank_apply_q4(x, *q, bv, group=group)
+    torch.cuda.synchronize()
+    assert fq.fused_lowrank_apply_q4.launches == n0 + 1
+    assert out.dtype == dt and out.shape == (M, N)
+    ref = fq.fused_lowrank_q4_reference(x, *q, bv, group=group)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_quantized_kernels_raise_instead_of_falling_back(cuda, monkeypatch):
+    """Bad inputs raise; a failed build raises out of the wrapper; above
+    MAX_FUSED_TOKENS the op is dequantize + two matmuls (no launch)."""
+    from asvd4llm_tpu_torch.ops import _build
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    rng = np.random.RandomState(0)
+    x, a8, aq, b8, bq, _ = _q8_inputs(rng, cuda, torch.float32, 40, 64, 48, 8, False, False)
+    xq4, q, _ = _q4_inputs(rng, cuda, torch.float32, 40, 64, 48, 8, False, 128, False)
+    n8, n4 = fq.fused_lowrank_apply_q8.launches, fq.fused_lowrank_apply_q4.launches
+    fq.fused_lowrank_apply_q8(x, a8, aq, b8, bq, max_tokens=16)
+    fq.fused_lowrank_apply_q4(xq4, *q, max_tokens=16)
+    assert (fq.fused_lowrank_apply_q8.launches, fq.fused_lowrank_apply_q4.launches) == (n8, n4)
+    with pytest.raises(TypeError):
+        fq.fused_lowrank_apply_q8(x, a8.float(), aq, b8, bq)
+    with pytest.raises(TypeError):  # scales rounded to bf16 are refused
+        fq.fused_lowrank_apply_q4(xq4, q[0], q[1].bfloat16(), *q[2:])
+    with pytest.raises(ValueError):
+        fq.fused_lowrank_apply_q4(xq4, *q, group=96)
+    # a launch the library refuses (a rank that is not a multiple of 512)
+    # comes back as an error, not as a silent fallback
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fq._launch("fused_lowrank_q4", xq4, (xq4, *q[3:], *q[:3], None),
+                   (40, 64, 100, 512, 48, 128), 48, 100)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+    monkeypatch.setattr(_build, "library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fq.fused_lowrank_apply_q8(x, a8, aq, b8, bq)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fq.fused_lowrank_apply_q4(xq4, *q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deploy", ["int8", "int4"])
+def test_decode_step_with_quantized_kernels_on_card(cuda, deploy):
+    """A decode step over q8 / q4 leaves with the kernels agrees with the
+    dequantize + matmul path in f32 and launches the kernel on every
+    quantized leaf."""
+    from asvd4llm_tpu_torch.eval.generate import decode_step, init_caches, prefill_host
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    from asvd4llm_tpu_torch.ops import quant_apply
+
+    params, spec = _tiny_lowrank_llama(cuda)
+    if deploy == "int8":
+        params, counter = quant_apply.quantize_lowrank_factors_int8(params, spec), \
+            fq.fused_lowrank_apply_q8
+    else:
+        params, counter = quant_apply.quantize_lowrank_factors_int4(params, spec), \
+            fq.fused_lowrank_apply_q4
+    ids = torch.randint(0, 128, (2, 9), generator=torch.Generator().manual_seed(1)).to(cuda)
+    caches = init_caches(params, spec, 2, 12, torch.float32, latent="kv")
+    assert all("k" in c for c in caches)  # quantized k/v leaves keep dense caches
+    _, caches = prefill_host(params, spec, ids, caches, latent="kv")
+    c1 = [{k: v.clone() for k, v in c.items()} for c in caches]
+    n0 = counter.launches
+    fused, _ = decode_step(params, spec, ids[:, -1:], c1, 9, use_pallas=True)
+    assert counter.launches - n0 == 8
+    plain, _ = decode_step(params, spec, ids[:, -1:], caches, 9, use_pallas=False)
+    torch.testing.assert_close(fused, plain, atol=1e-4, rtol=1e-4)

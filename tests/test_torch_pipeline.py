@@ -165,5 +165,8 @@ def test_cli_flags_match_jax(monkeypatch):
     assert tconfig.config_from_args(argv).use_pallas is True
     assert tconfig.config_from_args(argv + ["--no-use_pallas"]).use_pallas is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.check_supported(t.replace(weight_quant="rtn_int8"))
+        tpipe.check_supported(t.replace(scaling_method="fisher"))
+    for quant in ({"weight_quant": "awq_int4"}, {"deploy_int8_factors": True},
+                  {"deploy_int4_factors": True}):
+        tpipe.check_supported(t.replace(**quant))
     assert json.loads(json.dumps(t.to_dict(), default=str))
