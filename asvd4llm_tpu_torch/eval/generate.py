@@ -108,14 +108,16 @@ def _up_k(leaf, t, B, T, KV, hd):
 def _gqa_probs(q0, k, rep, scale, cap, mask_t):
     """Grouped-query attention probabilities without materializing repeated
     K: query heads reshape to [B, KV, rep, hd] (HF repeat_interleave order)
-    against the raw [B, T, KV, hd] cache. mask_t: [T]. -> [B, KV, rep, T] f32."""
+    against the raw [B, T, KV, hd] cache. mask_t: [T] shared or [B, T] per
+    sequence (ragged paged decode). -> [B, KV, rep, T] f32."""
     B, H, hd = q0.shape
     KV = k.shape[2]
     qg = q0.reshape(B, KV, rep, hd)
     logits = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * scale
     if cap > 0:
         logits = cap * torch.tanh(logits / cap)
-    return torch.softmax(logits + mask_t, dim=-1)
+    mask = mask_t if mask_t.dim() == 1 else mask_t[:, None, None, :]
+    return torch.softmax(logits + mask, dim=-1)
 
 
 def _absorbed_v_out(probs, tv, v_leaf, KV, hd, rep, x_dtype):
@@ -208,13 +210,17 @@ def _attend_step(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
 
 
 def _decode_layer(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
-                  up=False):
-    """One decoder layer at decode time."""
+                  up=False, attend=None):
+    """One decoder layer at decode time. ``attend`` swaps the attention and
+    cache implementation (serving/paged.py passes its paged attention with
+    per-sequence positions); the norm and MLP plumbing is the same for
+    every cache layout."""
+    attend = attend or _attend_step
     if spec.family == "opt":
         residual = x
         h = apply_norm(spec, layer["ln1"], x) if spec.do_layer_norm_before else x
-        attn, cache = _attend_step(spec, layer, h, cache, pos, cos_full,
-                                   sin_full, layer_idx, up=up)
+        attn, cache = attend(spec, layer, h, cache, pos, cos_full,
+                             sin_full, layer_idx, up=up)
         x = residual + attn
         if not spec.do_layer_norm_before:
             x = apply_norm(spec, layer["ln1"], x)
@@ -229,8 +235,8 @@ def _decode_layer(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
 
     residual = x
     h = apply_norm(spec, layer["ln1"], x)
-    attn, cache = _attend_step(spec, layer, h, cache, pos, cos_full,
-                               sin_full, layer_idx, up=up)
+    attn, cache = attend(spec, layer, h, cache, pos, cos_full,
+                         sin_full, layer_idx, up=up)
     if spec.post_attn_out_norm:
         attn = apply_norm(spec, layer["ln1_post"], attn)
     x = residual + attn

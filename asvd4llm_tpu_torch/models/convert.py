@@ -46,6 +46,15 @@ def params_from_numpy(tree, spec=None, *, dtype=torch.float32, device="cpu"):
     return _to_tensor(tree, dtype, device)
 
 
+def pools_from_numpy(pools, *, dtype=torch.float32, device="cpu"):
+    """A serving engine's page pools as numpy arrays (a list of per-layer
+    dicts, e.g. ``[{k: np.asarray(v) for k, v in p.items()} for p in
+    jax_engine.pools]``) -> the port's pools: ``dtype`` tensors on
+    ``device`` with the same keys and shapes."""
+    return [{k: _to_tensor(v, dtype, device) for k, v in layer.items()}
+            for layer in pools]
+
+
 def params_to_numpy(tree):
     """Port params -> numpy pytree (floating tensors as float32)."""
     if isinstance(tree, dict):

@@ -16,7 +16,14 @@ Phases:
            run the CLI with the weight target again with int8 and with int4
            deployed factors, each followed by greedy decode, and once with
            AWQ int4 fake-quant (PPL only). Each run's kernel launches are
-           counted from 0; the kernel each run exists for must be > 0.
+           counted from 0; the kernel each run exists for must be > 0;
+  serve    the paged continuous-batching engine (PagedEngine, use_pallas,
+           bf16 pools, automatic page size) on the weight-target and
+           KV-target models of the main phase: dense pools (kernel 5),
+           latent="v" (kernel 5, V-latent) with chunked prefill and the
+           prefix cache, latent="kv" (kernel 6) with multi-step decode, and
+           latent="auto"; 8 requests of 64-1024 prompt tokens each. Needs
+           the main phase.
 
 Exits non-zero without a CUDA device, and when any phase fails. The last
 line of standard output is the device record
@@ -300,6 +307,7 @@ def phase_kernels(torch, timer, record):
         "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16",
     }
     phase_quant_kernels(torch, timer, record, failures)
+    phase_paged_kernels(torch, timer, record, failures)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
 
@@ -442,7 +450,8 @@ def _dequantized(kind, q, K):
     return fq._q4_factors(*q, Q4_GROUP, K, q[1].dtype)
 
 
-KERNEL_NAMES = ("fused_lowrank", "latent_attention", "fused_lowrank_q8", "fused_lowrank_q4")
+KERNEL_NAMES = ("fused_lowrank", "latent_attention", "fused_lowrank_q8", "fused_lowrank_q4",
+                "paged_dense_attention", "paged_latent_attention")
 
 
 def _counted():
@@ -450,10 +459,13 @@ def _counted():
     from asvd4llm_tpu_torch.ops import fused_lowrank as fl
     from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
     from asvd4llm_tpu_torch.ops import latent_attention as la
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
     return {"fused_lowrank": fl.fused_lowrank_apply,
             "latent_attention": la.latent_decode_attention,
             "fused_lowrank_q8": fq.fused_lowrank_apply_q8,
-            "fused_lowrank_q4": fq.fused_lowrank_apply_q4}
+            "fused_lowrank_q4": fq.fused_lowrank_apply_q4,
+            "paged_dense_attention": pa.paged_dense_decode_attention,
+            "paged_latent_attention": pa.paged_latent_decode_attention}
 
 
 def kernel_counts():
@@ -465,9 +477,10 @@ def reset_kernel_counts():
         fn.launches = 0
 
 
-def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd):
+def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd, mask=None):
     """Yardstick, never called by the port: the unfused latent path with
-    PyTorch's scaled_dot_product_attention (K materialized, V = latents)."""
+    PyTorch's scaled_dot_product_attention (K materialized, V = latents;
+    `mask` [B, 1, 1, T] bool, where a key may be attended)."""
     B, H, _ = q.shape
     T = tk.shape[1]
     k = torch.matmul(tk, a_k.t()).reshape(B, T, KV, hd).transpose(1, 2)
@@ -477,7 +490,160 @@ def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
     v = tv[:, None].expand(B, H, T, tv.shape[2])
-    return torch.nn.functional.scaled_dot_product_attention(q[:, :, None, :], k, v)
+    return torch.nn.functional.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                                            attn_mask=mask)
+
+
+# ------------------------------------------------------ kernels 5 and 6
+
+PAGE = 256                       # the engine's automatic page at 7B width, bf16
+PAGED_POSITIONS = (1023, 700, 255, 0)
+PAGED_MP = 4                     # logical pages per row in the kernel phase
+PAGED_CASES = [  # (label, kernel, KV, Rk, Rv, softcap, sliding)
+    ("dense", "dense", 32, 0, 0, 0.0, 0),
+    ("vlatent", "vlatent", 32, 0, 1024, 0.0, 0),
+    ("latent", "latent", 32, 1024, 1024, 0.0, 0),
+    ("dense_gqa4", "dense", 8, 0, 0, 0.0, 0),
+    ("vlatent_gqa4", "vlatent", 8, 0, 1024, 0.0, 0),
+    ("latent_gqa4", "latent", 8, 1024, 1024, 0.0, 0),
+    ("dense_sliding", "dense", 32, 0, 0, 0.0, 128),
+    ("latent_softcap", "latent", 32, 1024, 1024, 50.0, 0),
+]
+
+
+def _live_keys(positions, sliding):
+    return sum(p + 1 if sliding <= 0 else min(p + 1, sliding) for p in positions)
+
+
+def paged_kernel_args(torch, pa, kind, q, pools, pt, positions, a_k=None, cos=None,
+                      sin=None):
+    """(core, plain version, positional args) of kernel 5 or 6."""
+    if kind == "latent":
+        return (pa._paged_latent_core, pa.paged_latent_reference,
+                (q, pools["tk"], pools["tv"], a_k, cos, sin, pt, positions))
+    v = pools["v"] if kind == "dense" else pools["tv"]
+    return pa._paged_dense_core, pa.paged_dense_reference, (q, pools["k"], v, pt, positions)
+
+
+def _sdpa_paged(torch, kind, q, pools, pt, positions, KV, hd, a_k=None, cos=None,
+                sin=None):
+    """Yardstick, never called by the port: gather the row's pages to
+    [B, T] and run scaled_dot_product_attention with a per-row mask (kernel
+    6: kernel 2's unfused latent yardstick on the gathered latents)."""
+    B, H, _ = q.shape
+    rows = pt.long()
+    T = rows.shape[1] * PAGE
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= positions.long()[:, None])[:, None, None, :]
+    qd = q.to(next(iter(pools.values())).dtype)
+    if kind == "latent":
+        tk = pools["tk"][rows].flatten(1, 2)
+        tv = pools["tv"][rows].flatten(1, 2)
+        return _sdpa_latent(torch, qd, tk, tv, a_k, cos[:T].to(tk.dtype), sin[:T].to(tk.dtype),
+                            KV, hd, mask=mask)
+    rep = H // KV
+    k = pools["k"][rows].flatten(1, 2).transpose(1, 2)            # [B, KV, T, hd]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+    if kind == "dense":
+        v = pools["v"][rows].flatten(1, 2).transpose(1, 2)
+        v = v.repeat_interleave(rep, dim=1) if rep > 1 else v
+    else:
+        tv = pools["tv"][rows].flatten(1, 2)
+        v = tv[:, None].expand(B, H, T, tv.shape[2])
+    return torch.nn.functional.scaled_dot_product_attention(qd[:, :, None, :], k, v,
+                                                            attn_mask=mask)
+
+
+def paged_bound(kind, positions, sliding, B, H, KV, hd, Rk, Rv, isz):
+    """(bytes, operations) the step must move and do: each live key's K/V
+    (or latent) rows once, A_k and the live cos/sin rows once (kernel 6),
+    q and the f32 output once."""
+    live = _live_keys(positions, sliding)
+    width = Rv if kind != "dense" else hd
+    io = B * H * hd * 4 + B * H * width * 4 + B * 4 * (1 + PAGED_MP)
+    if kind == "dense":
+        return live * 2 * KV * hd * isz + io, 2 * live * H * hd * 2
+    if kind == "vlatent":
+        return live * (KV * hd + Rv) * isz + io, 2 * live * H * (hd + Rv)
+    max_live = max(positions) + 1
+    return (live * (Rk + Rv) * isz + KV * hd * Rk * isz + 2 * max_live * hd * 4 + io,
+            2 * live * (Rk * KV * hd + H * hd + H * Rv))
+
+
+def phase_paged_kernels(torch, timer, record, failures):
+    """Kernels 5 and 6 at Llama-2-7B width (H=32, hd=128, page 256) on a
+    shuffled pool of 64 pages with ragged positions, each against its plain
+    version in f32 and bf16; in bf16 the main cases are timed beside their
+    bound, their plain version and a gather + SDPA yardstick."""
+    from asvd4llm_tpu_torch.models.decoder import rope_cos_sin
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, H, hd, NP = len(PAGED_POSITIONS), 32, 128, 64
+    perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(5)) + 1
+    pt = perm[:B * PAGED_MP].reshape(B, PAGED_MP).to(torch.int32).cuda()
+    positions = torch.tensor(PAGED_POSITIONS, dtype=torch.int32, device="cuda")
+    cos, sin = rope_cos_sin(torch.arange(PAGED_MP * PAGE, device="cuda"), hd, 10000.0)
+    mains = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol = rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        for label, kind, KV, Rk, Rv, cap, sw in PAGED_CASES:
+            def rnd(*shape, scale=0.5):
+                return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+            pools = {"k": rnd(NP, PAGE, KV, hd)} if kind != "latent" else \
+                {"tk": rnd(NP, PAGE, Rk)}
+            if kind == "dense":
+                pools["v"] = rnd(NP, PAGE, KV, hd)
+            else:
+                pools["tv"] = rnd(NP, PAGE, Rv)
+            a_k = rnd(KV * hd, Rk, scale=Rk ** -0.5) if kind == "latent" else None
+            q = torch.randn(B, H, hd, generator=g, device="cuda")
+            core, plain, args = paged_kernel_args(torch, pa, kind, q, pools, pt, positions,
+                                                  a_k, cos, sin)
+            kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+            out = core(*args, **kw)
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, med_rel = max_err(out, ref)
+            ok = within(out, ref, atol, rtol) and bool(torch.isfinite(out).all())
+            name = "paged_latent_attention" if kind == "latent" else "paged_dense_attention"
+            line = (f"  {str(dtype)[6:]:8s} {name} {label:14s} B={B} H={H} KV={KV} hd={hd}"
+                    f" P={PAGE} pool {NP} pages Rk={Rk} Rv={Rv} positions {PAGED_POSITIONS}"
+                    f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                    f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} {dtype} {label}")
+            if dtype == torch.bfloat16 and label in ("dense", "vlatent", "latent"):
+                nbytes, flops = paged_bound(kind, PAGED_POSITIONS, sw, B, H, KV, hd, Rk, Rv,
+                                            pools[next(iter(pools))].element_size())
+                bms, by = bound(nbytes, flops, dtype)
+                k_ms = timer.ms(lambda: core(*args, **kw))
+                p_ms = timer.ms(lambda: plain(*args, **kw))
+                l_ms = timer.ms(lambda: _sdpa_paged(torch, kind, q, pools, pt, positions,
+                                                    KV, hd, a_k, cos, sin))
+                line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
+                         f" gather+SDPA {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
+                         f" ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                mains[label] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": bms, "bound_by": by, "library_ms": l_ms}
+            log(line)
+            del pools, a_k, args, out, ref
+    shape = (f"B={B} H=KV=32 hd={hd} P={PAGE}, shuffled pool of {NP} pages, positions "
+             f"{PAGED_POSITIONS}, bf16")
+    record["paged_dense_attention"] = {
+        "name": "paged_dense_attention", "route": "cuda",
+        "source": "asvd4llm_tpu_torch/csrc/paged_dense_attention.cu",
+        "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:405",
+        **mains["dense"], "shape": shape + ", dense V",
+        "vlatent": dict(mains["vlatent"], shape=shape + ", V-latent Rv=1024"),
+    }
+    record["paged_latent_attention"] = {
+        "name": "paged_latent_attention", "route": "cuda",
+        "source": "asvd4llm_tpu_torch/csrc/paged_latent_attention.cu",
+        "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:496",
+        **mains["latent"], "shape": shape + ", Rk=Rv=1024",
+    }
 
 
 # -------------------------------------------------------------- main path
@@ -715,13 +881,14 @@ MAIN_RUNS = [
 ]
 
 
-def phase_main_path(torch, work, config, layers, sizes, device, launches):
+def phase_main_path(torch, work, config, layers, sizes, device, launches, models=None):
     """The MAIN_RUNS through the CLI on one checkpoint and cache directory
     (runs after the first reuse its sensitivity scan), each but the last
     followed by greedy decode with use_pallas=True and a decode-step check.
     The kernel counts are set to 0 just before each run and read just after
-    its decode; `launches` accumulates them per kernel. Returns
-    {run: counts}."""
+    its decode; `launches` accumulates them per kernel. `models`, when
+    given, keeps (params, spec) of the SERVE_MODELS runs for the serve
+    phase. Returns {run: counts}."""
     ckpt = write_checkpoint(work, config, layers)
     prompt = np.random.RandomState(1).randint(
         0, config["vocab_size"], (DECODE_BATCH, PROMPT_LEN))
@@ -741,7 +908,200 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches):
         counts_by_run[run] = counts
         if latent_kv is not None:
             step_check(torch, out, prompt, latent_kv=latent_kv)
+        if models is not None and run in SERVE_MODELS:
+            models[run] = (out["params"], out["spec"])
         del out
+    return counts_by_run
+
+
+# ------------------------------------------------------------------ serve
+
+SERVE_MODELS = ("weight target", "KV-cache target")
+SERVE_ENGINE = dict(max_batch=4, num_pages=256, max_pages_per_seq=8)  # automatic page
+SERVE_REQUESTS, SERVE_PREFIX = 8, 512
+# (run, model, latent, use_pallas, engine options, run(chunk=...), kernel it is for)
+SERVE_RUNS = [
+    ("dense pools", "weight target", False, True, {}, 1, "paged_dense_attention"),
+    ('latent="v", chunked prefill + prefix cache', "KV-cache target", "v", True,
+     {"prefill_chunk": 256, "prefix_cache": 4}, 1, "paged_dense_attention"),
+    ('latent="kv", run(chunk=8)', "KV-cache target", "kv", True, {}, 8,
+     "paged_latent_attention"),
+    ('latent="auto"', "KV-cache target", "auto", None, {}, 1, None),
+]
+
+
+def serve_traffic(vocab):
+    """8 prompts of 64-1024 tokens from a fixed seed, none a whole number of
+    pages; requests 3 and 4 share a 512-token prefix (request 3, 1023
+    tokens, is the last of the first four to finish its prefill, so its
+    prefixes are the newest in the cache when request 4 is admitted at
+    request 1's retirement). Budgets 32 tokens, request 1 8 and request 5
+    48, so that retirement and admission happen mid-run."""
+    rng = np.random.RandomState(7)
+    lens = [int(n) + (n % PAGE == 0) for n in rng.randint(64, 1025, SERVE_REQUESTS)]
+    prompts = [rng.randint(0, vocab, n) for n in lens]
+    prefix = rng.randint(0, vocab, SERVE_PREFIX)
+    for i, n in ((3, 1023), (4, max(lens[4], SERVE_PREFIX + 97))):
+        prompts[i] = np.concatenate([prefix, rng.randint(0, vocab, n - SERVE_PREFIX)])
+    budgets = [32] * SERVE_REQUESTS
+    budgets[1], budgets[5] = 8, 48
+    return prompts, budgets
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def paged_kernels_at_path_shapes(torch, params, spec, eng):
+    """Kernels 5 and 6 against their plain versions on the engine's own
+    pools, page table and positions, with a random f32 query (bf16
+    tolerance, as in the kernel phase)."""
+    from asvd4llm_tpu_torch.models.decoder import attn_scale, rope_cos_sin
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    pt, pos = eng._dev(eng.page_table), eng._dev(eng.positions)
+    B, MP = pt.shape
+    cos, sin = rope_cos_sin(torch.arange(MP * eng.page_size, device=eng.device), hd,
+                            spec.rope_theta)
+    g = torch.Generator(device=eng.device).manual_seed(4)
+    for i, (layer, pools) in enumerate(zip(params["layers"], eng.pools)):
+        kind = "latent" if "tk" in pools else "vlatent" if "tv" in pools else "dense"
+        q = torch.randn(B, H, hd, generator=g, device=eng.device)
+        core, plain, args = paged_kernel_args(torch, pa, kind, q, pools, pt, pos,
+                                              layer["k_proj"].get("A"), cos, sin)
+        kw = dict(scale=attn_scale(spec), softcap=spec.attn_logit_softcap,
+                  sliding=spec.sliding_window if spec.layer_uses_sliding(i) else 0,
+                  kv_heads=KV)
+        out = core(*args, **kw)
+        ref = plain(*args, **kw)
+        _sync(torch, eng.device)
+        err, _ = max_err(out, ref)
+        ok = within(out, ref, 1e-2, 1e-2)
+        widths = {k: tuple(v.shape) for k, v in pools.items()}
+        log(f"  {'paged_latent' if kind == 'latent' else 'paged_dense'}_attention at layer "
+            f"{i} ({kind}, pools {widths}, page table {tuple(pt.shape)}, positions "
+            f"{eng.positions.tolist()}): max_abs_err {err:.3e} tol=atol 0.01 + rtol 0.01 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the paged {kind} kernel disagrees with its plain version "
+                                 f"at layer {i}")
+
+
+def serve_probe(torch, params, spec, latent, use_pallas, opts, prompts, steps=8):
+    """A probe engine with the first max_batch prompts prefilled: its first
+    paged_decode_step with the kernels against the plain gather path on
+    cloned pools (5% of the largest logit, as step_check), the paged kernels
+    against their plain versions at its shapes, then the decode-step time
+    on the host clock and a traced decode window."""
+    from asvd4llm_tpu_torch.serving import PagedEngine, paged_decode_step
+    eng = PagedEngine(params, spec, latent=latent, use_pallas=use_pallas,
+                      dtype=torch.bfloat16, **SERVE_ENGINE, **opts)
+    for p in prompts[:SERVE_ENGINE["max_batch"]]:
+        eng.add_request(p, max_new_tokens=4 * steps)
+    while any(r is not None and not r.decoding for r in eng.slots):
+        eng._prefill_tick()
+    active = [r for r in eng.slots if r is not None]
+    eng._grow_pages(active, 1)
+    tok, pt, pos = (eng._dev(a) for a in (eng.cur_token, eng.page_table, eng.positions))
+
+    def clone():
+        return [{k: v.clone() for k, v in p.items()} for p in eng.pools]
+    fused, _ = paged_decode_step(params, spec, tok, clone(), pt, pos, use_pallas=True)
+    plain, _ = paged_decode_step(params, spec, tok, clone(), pt, pos, use_pallas=False)
+    rows = [r.slot for r in active]
+    fused, plain = fused[rows], plain[rows]
+    if not bool(torch.isfinite(fused).all()):
+        raise AssertionError("paged decode-step logits are not finite")
+    err = float((fused - plain).abs().max())
+    tol = 0.05 * float(plain.abs().max())
+    agree = float((fused.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"  first paged_decode_step (positions {eng.positions.tolist()}, page "
+        f"{eng.page_size}), kernels vs gather path: max_abs_err {err:.3e} tol {tol:.3e} "
+        f"(5% of max |logit|), argmax agreement {agree:.2f} {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        raise AssertionError("the paged decode step with the kernels disagrees with the "
+                             "gather path")
+    paged_kernels_at_path_shapes(torch, params, spec, eng)
+    _sync(torch, eng.device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    _sync(torch, eng.device)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    log(f"  engine decode step (batch {len(active)}, step() with its host work): "
+        f"{ms:.2f} ms on the host clock")
+    if eng.device.type == "cuda":
+        decode_breakdown(torch, lambda: [eng.step() for _ in range(steps)], steps)
+    return ms
+
+
+def phase_serve(torch, models, launches):
+    """The SERVE_RUNS: for each, a probe (first-step and kernel checks,
+    decode-step time and breakdown), then the timed run of the 8-request
+    traffic with the kernel counts set to 0 just before it and read just
+    after; every request must emit its budget of in-range tokens, and the
+    run's kernel must have launched. Agreement with per-request flat
+    generate is logged (bf16 argmax on random weights ties). Returns
+    {run: counts}."""
+    from asvd4llm_tpu_torch.eval.generate import generate
+    from asvd4llm_tpu_torch.serving import PagedEngine
+    counts_by_run = {}
+    for run, model, latent, use_pallas, opts, chunk, kernel in SERVE_RUNS:
+        params, spec = models[model]
+        prompts, budgets = serve_traffic(spec.vocab_size)
+        log(f"serve, {run}: {model} model, PagedEngine(latent={latent!r}, "
+            f"use_pallas={use_pallas}, bf16 pools, automatic page, {SERVE_ENGINE}, "
+            f"{opts}), run(chunk={chunk}); prompts {[len(p) for p in prompts]}, "
+            f"budgets {budgets}")
+        step_ms = serve_probe(torch, params, spec, latent, use_pallas, opts, prompts)
+        eng = PagedEngine(params, spec, latent=latent, use_pallas=use_pallas,
+                          dtype=torch.bfloat16, **SERVE_ENGINE, **opts)
+        log(f"  engine: latent={eng.latent!r} use_pallas={eng.use_pallas} page_size "
+            f"{eng.page_size}, {eng.pools[0][next(iter(eng.pools[0]))].shape[0]} pages, "
+            f"pool keys {[sorted(p) for p in eng.pools]}")
+        reset_kernel_counts()
+        _sync(torch, eng.device)
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+        eng.run(chunk=chunk)
+        _sync(torch, eng.device)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        counts_by_run[run] = counts
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        results = [eng.result(r) for r in rids]
+        for res, n in zip(results, budgets):
+            if len(res) != n or res.min() < 0 or res.max() >= spec.vocab_size:
+                raise AssertionError(f"a request emitted {len(res)} tokens of {n}, or "
+                                     f"tokens out of range")
+        st = eng.stats()
+        n_tok = st["tokens_generated"]
+        log(f"  {len(rids)} requests, {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} "
+            f"tok/s with prefill; TTFT p50 {st['ttft_s']['p50']:.3f} s p90 "
+            f"{st['ttft_s']['p90']:.3f} s; TPOT p50 {st['tpot_s']['p50'] * 1e3:.2f} ms p90 "
+            f"{st['tpot_s']['p90'] * 1e3:.2f} ms; phase_s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items())
+            + f"; prefix tokens skipped {st['prefix_tokens_skipped']}; decode step "
+            f"{step_ms:.2f} ms")
+        log(f"  kernel launches in this run: {counts}")
+        if opts.get("prefix_cache") and st["prefix_tokens_skipped"] <= 0:
+            raise AssertionError("the shared prefix was never served from the prefix cache")
+        want = kernel or ("paged_latent_attention" if eng.latent == "kv"
+                          else "paged_dense_attention")
+        if counts[want] <= 0:
+            raise AssertionError(f"the serve run {run} never launched the {want} kernel")
+        flat_mode = {False: False, "v": "v", "kv": True}[eng.latent]
+        same = 0
+        for p, res in zip(prompts, results):
+            flat = generate(params, spec, p[None], max_new_tokens=len(res),
+                            latent_kv=flat_mode, use_pallas=True)[0, len(p):]
+            same += int((flat == res).sum())
+        log(f"  agreement with per-request flat generate: {same}/{n_tok} tokens "
+            f"(logged, not required)")
+        del eng
     return counts_by_run
 
 
@@ -749,7 +1109,7 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main")
+    ap.add_argument("--phases", default="kernels,main,serve")
     ap.add_argument("--workdir", default="",
                     help="checkpoint/cache directory (default: a temporary one)")
     args = ap.parse_args(argv)
@@ -789,12 +1149,18 @@ def main(argv=None) -> int:
         if "main" in phases:
             log(f"main path sizes: {MAIN_SIZES}, decode batch {DECODE_BATCH}, "
                 f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens")
+            models = {} if "serve" in phases else None
             counts = phase_main_path(torch, work, LLAMA2_7B, SMOKE_LAYERS,
-                                     MAIN_SIZES, "cuda:0", launches)
+                                     MAIN_SIZES, "cuda:0", launches, models)
             for run, _, _, kernel in MAIN_RUNS:
                 if kernel and counts[run][kernel] <= 0:
                     raise AssertionError(f"the {run} main path never launched the "
                                          f"{kernel} kernel")
+            if models is not None:
+                phase_serve(torch, models, launches)
+                del models
+        elif "serve" in phases:
+            raise ValueError("the serve phase needs the main phase's models")
     finally:
         if not args.workdir:
             shutil.rmtree(work, ignore_errors=True)

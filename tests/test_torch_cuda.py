@@ -333,3 +333,118 @@ def test_decode_step_with_quantized_kernels_on_card(cuda, deploy):
     assert counter.launches - n0 == 8
     plain, _ = decode_step(params, spec, ids[:, -1:], caches, 9, use_pallas=False)
     torch.testing.assert_close(fused, plain, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- kernels 5 and 6 (paged) --
+
+PAGED_CASES = {
+    # name: (kernel, B, KV, rep, hd, page, Rk, Rv, softcap, sliding)
+    "dense_p8_mha": ("dense", 4, 8, 1, 128, 8, 0, 0, 0.0, 0),
+    "dense_p256_gqa4": ("dense", 3, 4, 4, 128, 256, 0, 0, 0.0, 0),
+    "dense_p16_gqa8_hd64_sliding": ("dense", 8, 2, 8, 64, 16, 0, 0, 0.0, 40),
+    "vlatent_p16_rep4_rv3072": ("vlatent", 2, 2, 4, 128, 16, 0, 3072, 0.0, 0),
+    "vlatent_p256_mha_hd64_softcap": ("vlatent", 4, 8, 1, 64, 256, 0, 1024, 30.0, 0),
+    "latent_p8_mha": ("latent", 4, 8, 1, 128, 8, 256, 192, 0.0, 0),
+    "latent_p256_gqa8_hd64_sliding": ("latent", 2, 2, 8, 64, 256, 512, 3072, 0.0, 100),
+    "latent_p16_rep4_odd_rank": ("latent", 3, 4, 4, 128, 16, 100, 72, 20.0, 0),
+}
+
+
+def _paged_case_inputs(rng, cuda, dt, B, KV, rep, hd, page, Rk, Rv):
+    """Shuffled pages; ragged positions from 0 to the last slot, with a
+    partial last page; row 1 an idle slot (page table all 0, position 0).
+    Rows hold up to 320 keys (768 at page 256), so the kernels' 128-key
+    chunks straddle small pages."""
+    mp = max(3, 320 // page)
+    n_pages = 1 + B * mp
+    pt = (rng.permutation(n_pages - 1) + 1).reshape(B, mp).astype(np.int32)
+    pt[1] = 0
+    positions = rng.randint(0, mp * page, B).astype(np.int32)
+    positions[0], positions[1] = mp * page - 1, 0
+    if B > 2:
+        positions[2] = page + 3
+    H = KV * rep
+
+    def t(*shape, scale=0.5, dtype=dt):
+        return torch.from_numpy(_randn(rng, *shape, scale=scale)).to(cuda, dtype)
+    inv = 1.0 / (10000.0 ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    fr = np.arange(mp * page, dtype=np.float32)[:, None] * inv[None, :]
+    emb = np.concatenate([fr, fr], axis=-1)
+    return dict(
+        q=t(B, H, hd, scale=1.0, dtype=torch.float32),
+        k_pool=t(n_pages, page, KV, hd), v_pool=t(n_pages, page, KV, hd),
+        tv_pool=t(n_pages, page, max(Rv, 1)), tk_pool=t(n_pages, page, max(Rk, 1)),
+        a_k=t(KV * hd, max(Rk, 1), scale=max(Rk, 1) ** -0.5),
+        cos=torch.from_numpy(np.cos(emb)).to(cuda), sin=torch.from_numpy(np.sin(emb)).to(cuda),
+        pt=torch.from_numpy(pt).to(cuda), positions=torch.from_numpy(positions).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_kernels_match_plain(cuda, dtype, case):
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    kind, B, KV, rep, hd, page, Rk, Rv, cap, sw = PAGED_CASES[case]
+    rng = np.random.RandomState(len(case) + page)
+    d = _paged_case_inputs(rng, cuda, getattr(torch, dtype), B, KV, rep, hd, page, Rk, Rv)
+    kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+    if kind == "latent":
+        args = (d["q"], d["tk_pool"], d["tv_pool"], d["a_k"], d["cos"], d["sin"],
+                d["pt"], d["positions"])
+        counter, core, ref_fn = (pa.paged_latent_decode_attention, pa._paged_latent_core,
+                                 pa.paged_latent_reference)
+    else:
+        args = (d["q"], d["k_pool"], d["v_pool"] if kind == "dense" else d["tv_pool"],
+                d["pt"], d["positions"])
+        counter, core, ref_fn = (pa.paged_dense_decode_attention, pa._paged_dense_core,
+                                 pa.paged_dense_reference)
+    n0 = counter.launches
+    out = core(*args, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    tol = TOL[dtype]
+    torch.testing.assert_close(out, ref_fn(*args, **kw), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_paged_kernels_raise_instead_of_falling_back(cuda):
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    rng = np.random.RandomState(0)
+    d = _paged_case_inputs(rng, cuda, torch.float32, 2, 2, 2, 64, 16, 32, 24)
+    kw = dict(scale=0.125, softcap=0.0, sliding=0, kv_heads=2)
+    with pytest.raises(TypeError):          # the core takes q in f32 only
+        pa._paged_dense_core(d["q"].bfloat16(), d["k_pool"], d["v_pool"], d["pt"],
+                             d["positions"], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa._paged_dense_core(d["q"], d["k_pool"].transpose(2, 3).contiguous().transpose(2, 3),
+                             d["v_pool"], d["pt"], d["positions"], **kw)
+    with pytest.raises(TypeError):          # an f32 A_k over bf16 pools
+        pa.paged_latent_decode_attention(
+            d["q"], d["tk_pool"].bfloat16(), d["tv_pool"].bfloat16(), d["a_k"], d["a_k"],
+            d["cos"], d["sin"], d["pt"], d["positions"], kv_heads=2, scale=0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [False, "v", "kv"])
+def test_paged_engine_kernels_match_gather_path_on_card(cuda, mode):
+    """The serving engine on the card, f32: use_pallas=True (kernels 1, 5
+    and 6) emits the tokens of use_pallas=False (the gather path), and the
+    mode's paged kernel launched."""
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    from asvd4llm_tpu_torch.serving import PagedEngine
+    params, spec = _tiny_lowrank_llama(cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 128, (n,)) for n in (7, 19, 12)]
+    counter = pa.paged_latent_decode_attention if mode == "kv" \
+        else pa.paged_dense_decode_attention
+    outs = []
+    for up in (True, False):
+        eng = PagedEngine(params, spec, max_batch=2, page_size=8, num_pages=32,
+                          max_pages_per_seq=6, latent=mode, use_pallas=up)
+        n0 = counter.launches
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in zip(prompts, (9, 5, 7))]
+        eng.run()
+        assert (counter.launches > n0) == up
+        outs.append([eng.result(r).tolist() for r in rids])
+    assert outs[0] == outs[1]
