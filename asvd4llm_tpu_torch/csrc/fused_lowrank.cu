@@ -1,8 +1,8 @@
 // Fused low-rank linear for Hopper (sm_90a): y = (x · Bᵀ) · Aᵀ + bias.
 //
 // Replaces asvd4llm_tpu/ops/pallas_lowrank.py::_fused_2d (body `_kernel`,
-// public wrapper `fused_lowrank_apply`), SVDLinear's forward at decode
-// shapes (M <= 1024 tokens).
+// public wrapper `fused_lowrank_apply`), SVDLinear's forward at decode and
+// PPL-window shapes (M <= 1024 tokens).
 //
 // Semantics kept from the TPU kernel:
 //   t = x · Bᵀ accumulated in f32;
@@ -15,39 +15,50 @@
 // against M·R·(K+N) multiply-adds, far below the ~295 FLOP/byte ridge for
 // M <= 16, so what matters there is streaming A and B once at full rate.
 // At M = 1024 the products are above the ridge and the tensor cores bound
-// it.
+// it (q_proj: 32.2 GFLOP, 32.6 us at 989 TFLOP/s).
 //
-// Design:
-//   * The TPU kernel keeps t in VMEM because its grid runs in order on one
-//     core. Hopper blocks run in no order, so t goes through an f32 scratch
-//     [M, R] in device memory between two launches. At decode shapes t is
-//     tiny (M=16, R=2688 is 172 KB) and stays in the 50 MB L2, so the round
-//     trip costs nothing measurable next to the factor stream.
-//   * Both products are one "NT" product, C[M, N] += X[M, K] · W[N, K]ᵀ,
-//     split over K across the grid; the partial sums meet with f32
-//     atomicAdd in one zeroed f32 scratch, and a last small launch adds the
-//     bias and rounds. Stage 2 reads the f32 t and rounds it to A's type as
-//     it loads it.
-//   * bf16, M <= 16 (`mma_skinny`): mma.sync m16n8k16 with the operands
-//     swapped, so 16 rows of W fill the MMA's 16-row side and the few rows
-//     of X its 8-wide side. Each lane loads 16 bytes of two W rows straight
-//     into registers as its A fragment: the k order inside a 32-wide block
-//     is permuted identically for W and X, which a dot product allows, so no
-//     shuffle or shared-memory pass is needed. A warp requests 16 rows x 256
-//     columns at once; X is staged in shared memory as bf16 and serves the
-//     block's four warps. The accumulators are 4 or 8 floats a lane, so the
-//     register count does not grow with M.
-//   * bf16, M > 16 (`wmma_tiled`): 64 x 64 output tiles, four warps of
-//     32 x 32 (WMMA 16x16x16 bf16, f32 accumulators), 32-deep shared-memory
-//     stages, no pipelining. wgmma, TMA and a deeper ring are later work.
-//   * f32, and bf16 shapes whose rows are not 16-byte aligned: the same two
-//     forms on the CUDA cores (`gemv_splitk`, `nt_gemm_splitk`), since the
-//     tensor cores would round f32 inputs to TF32.
+// Forms, chosen by the wrapper (`ops/fused_lowrank.py::_form`) and passed in:
+//   * "wgmma_tiled" (bf16, M > 16, K and R multiples of 8, 16-byte aligned
+//     operands): two launches of `sm90::gemm_nt` (gemm_sm90.cuh), a
+//     TMA-fed wgmma GEMM with a 4- to 6-stage ring, output tiles of 128
+//     rows (64 below M = 128) and 128, 176, 192 or 256 columns (whichever
+//     ends its last wave first), one producer warp and one or two consumer
+//     warpgroups, the row tiles of one weight tile side by side in the grid
+//     so that the weight streams through L2 once. Stage 1 writes t already rounded to bf16 (half the bytes of
+//     an f32 t, and exactly the TPU kernel's `t_acc.astype(a.dtype)`);
+//     stage 2 adds the bias in f32 and rounds once. No split over K, no
+//     atomics, no memset, no finishing launch: at q_proj M=1024 the two
+//     stages have 120 tiles of 128 x 128 and 128 of 128 x 256 for 132 SMs.
+//   * The split-K forms, for everything else, in two NT products
+//     C[M, N] += X[M, K] · W[N, K]ᵀ split over K across the grid, the
+//     partial sums meeting with f32 atomicAdd in one zeroed f32 scratch
+//     (t, then y), and a last small launch adding the bias and rounding;
+//     stage 2 reads the f32 t and rounds it to A's type as it loads it:
+//     - "mma_skinny" (bf16, M <= 16, aligned): mma.sync m16n8k16 with the
+//       operands swapped, so 16 rows of W fill the MMA's 16-row side and
+//       the few rows of X its 8-wide side. Each lane loads 16 bytes of two
+//       W rows straight into registers as its A fragment: the k order inside
+//       a 32-wide block is permuted identically for W and X, which a dot
+//       product allows. X is staged in shared memory as bf16. At decode
+//       shapes it is at parity with cuBLAS.
+//     - "wmma_tiled" (bf16, M > 16, K aligned but R not a multiple of 8,
+//       e.g. the KV-target ranks 819/409): stage 1 on 64 x 64 WMMA tiles,
+//       stage 2 on the CUDA cores.
+//     - "cuda_cores" (f32, and bf16 rows that are not 16-byte aligned):
+//       `gemv_splitk` for M <= 16, `nt_gemm_splitk` above, since the tensor
+//       cores would round f32 inputs to TF32.
 //   The products of two bf16 values are exact in f32, so the tensor-core
-//   paths differ from the plain version only in the order of the sums.
+//   forms differ from the plain version only in the order of the sums.
+// Known costs of the wgmma form, for later work: the epilogue stores
+// 4-byte pairs straight from the accumulators (rows of 16 bytes per warp
+// instruction) and does not overlap the next tile's loads (one block per
+// SM, no persistent tile loop); a stage whose tiles do not divide into
+// whole waves idles SMs in its last one (no stream-K); below M ~ 512 the
+// grid does not fill the card (no split over K).
 
 #include <mma.h>
 
+#include "gemm_sm90.cuh"
 #include "lowrank_common.cuh"
 
 namespace {
@@ -467,25 +478,47 @@ int run(const T* x, const T* b, const T* a, const T* bias, T* y, float* scratch,
   return (int)cudaGetLastError();
 }
 
+// The wgmma form: t = T(x · Bᵀ) into `t_bf16` [M, R], then y = T(t · Aᵀ + bias).
+int run_sm90(const __nv_bfloat16* x, const __nv_bfloat16* b, const __nv_bfloat16* a,
+             const __nv_bfloat16* bias, __nv_bfloat16* y, __nv_bfloat16* t, int M, int K, int R,
+             int N, cudaStream_t stream) {
+  if (M <= kGemvMaxM || K % 8 != 0 || R % 8 != 0 || !aligned16(x) || !aligned16(b) ||
+      !aligned16(a) || !aligned16(t))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* no_bias = nullptr;
+  cudaError_t err = sm90::launch_gemm_nt(x, b, t, no_bias, M, R, K, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sm90::launch_gemm_nt(t, a, y, bias, M, N, R, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x [M,K], b [R,K], a [N,R], bias [N] or
-// null, y [M,N] of the io type; scratch holds M·(R+N) f32 values. Returns
-// cudaGetLastError() after the launches (0 = success).
+// null, y [M,N] of the io type. form: 0 = the split-K forms (scratch holds
+// M·(R+N) f32 values), 1 = the wgmma form (bf16 only; scratch holds the
+// bf16 t [M, R]). Returns cudaGetLastError() after the launches (0 =
+// success), cudaErrorInvalidValue for a form the shape does not allow.
 extern "C" int fused_lowrank_launch(const void* x, const void* b, const void* a,
                                     const void* bias, void* y, void* scratch, int M, int K,
-                                    int R, int N, int dtype, void* stream) {
+                                    int R, int N, int dtype, int form, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (form == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return run_sm90(static_cast<const bf16*>(x), static_cast<const bf16*>(b),
+                    static_cast<const bf16*>(a), static_cast<const bf16*>(bias),
+                    static_cast<bf16*>(y), static_cast<bf16*>(scratch), M, K, R, N, s);
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   float* scr = static_cast<float*>(scratch);
   if (dtype == 0)
     return run<float>(static_cast<const float*>(x), static_cast<const float*>(b),
                       static_cast<const float*>(a), static_cast<const float*>(bias),
                       static_cast<float*>(y), scr, M, K, R, N, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(b),
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(bias),
-        static_cast<__nv_bfloat16*>(y), scr, M, K, R, N, s);
+    return run<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(b),
+                     static_cast<const bf16*>(a), static_cast<const bf16*>(bias),
+                     static_cast<bf16*>(y), scr, M, K, R, N, s);
   return (int)cudaErrorInvalidValue;
 }
 

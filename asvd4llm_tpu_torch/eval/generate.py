@@ -36,6 +36,7 @@ from asvd4llm_tpu_torch.models.decoder import (
     rope_cos_sin,
 )
 from asvd4llm_tpu_torch.models.registry import is_lowrank
+from asvd4llm_tpu_torch.ops.lowrank import align_ranks
 
 NEG = -1e30
 
@@ -370,7 +371,11 @@ def generate(params, spec, input_ids, *, max_new_tokens: int = 32,
              latent_kv: bool = False, use_pallas: bool = False,
              dtype=None) -> np.ndarray:
     """Greedy generation on the params' device. input_ids: [B, S] ->
-    numpy [B, S + new]."""
+    numpy [B, S + new]. With ``use_pallas`` the low-rank ranks are first
+    zero-padded to the kernels' multiple (``align_ranks``, exact), so the
+    latent caches are allocated padded."""
+    if use_pallas:
+        params = align_ranks(params, spec)
     dev = params["embed_tokens"].device
     ids = torch.as_tensor(np.asarray(input_ids), device=dev)
     B, S = ids.shape

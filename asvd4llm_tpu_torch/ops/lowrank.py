@@ -10,6 +10,13 @@ Two execution paths, as in the JAX package:
   hand-written CUDA kernel on a CUDA tensor, its plain version on the CPU.
   (The flag keeps the JAX package's name so that the two packages' calls
   read alike.)
+
+``align_ranks`` zero-pads every low-rank leaf's rank to a multiple of 8,
+which the kernels' tensor-core forms need for 16-byte rows (TMA and
+wgmma). The padding is exact: the zero rows of B give latent columns that
+are exactly 0, and the zero columns of A add nothing. The decode and
+evaluation entry points apply it once when they run the kernels, so the
+latent caches they allocate come out padded too.
 """
 
 from __future__ import annotations
@@ -18,6 +25,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from asvd4llm_tpu_torch.models.registry import is_lowrank, iter_linears, set_linear
+
+RANK_MULTIPLE = 8   # bf16 elements in 16 bytes
 
 
 def dense_apply(x: torch.Tensor, w: torch.Tensor,
@@ -38,3 +49,22 @@ def lowrank_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return fused_lowrank_apply(x, a, b, bias)
     t = F.linear(x, b)
     return F.linear(t, a, None if bias is None else bias.to(x.dtype))
+
+
+def pad_rank(leaf: dict, multiple: int = RANK_MULTIPLE) -> dict:
+    """A low-rank leaf with its rank zero-padded up to a multiple of
+    `multiple` (A [N, R] gains zero columns, B [R, K] zero rows)."""
+    R = leaf["A"].shape[1]
+    pad = -R % multiple
+    if not pad:
+        return leaf
+    return dict(leaf, A=F.pad(leaf["A"], (0, pad)), B=F.pad(leaf["B"], (0, 0, 0, pad)))
+
+
+def align_ranks(params: dict, spec, multiple: int = RANK_MULTIPLE) -> dict:
+    """params with every low-rank leaf through `pad_rank` (a new dict; the
+    given one is not changed)."""
+    for name, leaf in list(iter_linears(params, spec, include_extras=True)):
+        if is_lowrank(leaf) and leaf["A"].shape[1] % multiple:
+            params = set_linear(params, spec, name, pad_rank(leaf, multiple))
+    return params

@@ -26,6 +26,7 @@ from asvd4llm_tpu_torch.config import ASVDConfig
 from asvd4llm_tpu_torch.data.datasets import get_calib_data, get_eval_tokens
 from asvd4llm_tpu_torch.device import resolve_device
 from asvd4llm_tpu_torch.eval.ppl import evaluate_ppl_windowed
+from asvd4llm_tpu_torch.ops.lowrank import align_ranks
 from asvd4llm_tpu_torch.utils.cache import ArtifactCache
 
 log = logging.getLogger(__name__)
@@ -126,9 +127,12 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
 
 def evaluate(params, spec, tokenizer, cfg: ASVDConfig, *, times=None) -> dict:
     """PPL on the cfg.eval_ppl datasets, low-rank and quantized leaves
-    through the fused kernels when cfg.use_pallas. Phase seconds go into
-    ``times`` when given."""
+    through the fused kernels when cfg.use_pallas (low-rank ranks then
+    zero-padded to the kernels' multiple, ``align_ranks``, exact). Phase
+    seconds go into ``times`` when given."""
     check_supported(cfg)
+    if cfg.use_pallas:
+        params = align_ranks(params, spec)
     times = {} if times is None else times
     results: dict = {}
     if cfg.eval_ppl:

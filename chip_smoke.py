@@ -64,7 +64,13 @@ KERNEL1_SHAPES = [  # (name, N, K, R): Llama-2-7B linears at ratio 0.9, rank_ali
     ("gate_proj", 11008, 4096, 2688), ("up_proj", 11008, 4096, 2688),
     ("down_proj", 4096, 11008, 2688),
 ]
+# Llama-2-7B k/v projections at the ranks of the KV-target run (ratio 0.5,
+# rank_align 1): not multiples of 8, so a call with them as they are takes
+# the WMMA form; align_ranks pads them for the wgmma form
+KERNEL1_KV_SHAPES = [("k_proj", 4096, 4096, 819), ("v_proj", 4096, 4096, 409)]
 DECODE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 128, 32
+KERNEL1_M = (1, DECODE_BATCH, 16, 64, 256, 1024)   # checked, bf16 and f32
+KERNEL1_TIMED_M = (DECODE_BATCH, 64, 256, 1024)     # timed, bf16
 # calibration rows and window length of the two CLI runs (the PPL scan
 # evaluates every leaf at 6 weight ratios and 19 KV ratios on these rows)
 MAIN_SIZES = {"n_calib_samples": 8, "seqlen": 256}
@@ -158,6 +164,32 @@ class Timer:
         return out
 
 
+NEW_FORM_KERNELS = ("gemm_nt", "latent_split_kernel")  # the wgmma forms of kernels 1, 2
+
+
+def new_form_ptxas(build_logs):
+    """(library, kernel, register line, spill line) of each kernel of the
+    wgmma forms in the nvcc -Xptxas -v output."""
+    rows = []
+    for name, out in build_logs.items():
+        kernel = None
+        for ln in out.splitlines():
+            if "Compiling entry function" in ln:
+                mangled = ln.split("'")[1] if "'" in ln else ln
+                kernel = next((k for k in NEW_FORM_KERNELS if k in mangled), None)
+                if kernel:
+                    # template arguments as mangled: ILi2ELi128EE -> <2, 128>
+                    args = mangled.split(kernel, 1)[1].split("EE")[0]
+                    kernel += "<" + ", ".join(a for a in args.replace("ILi", "").split("ELi")) + ">"
+                spill = None
+            elif kernel and "spill" in ln:
+                spill = ln.strip()
+            elif kernel and "registers" in ln:
+                rows.append((name, kernel, ln.split(":", 1)[-1].strip(), spill))
+                kernel = None
+    return rows
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(dtype)]
@@ -176,6 +208,64 @@ def within(out, ref, atol, rtol):
 
 # ------------------------------------------------------------------ kernels
 
+def kernel1_unaligned_ranks(torch, timer, g, failures):
+    """Kernel 1 at KERNEL1_KV_SHAPES, bf16: each rank as it is (the WMMA form
+    above M=16) and zero-padded by pad_rank (the wgmma form), both held
+    against the plain version; at M=1024 the two timed in turns beside two
+    matmuls and the bound. -> their M=1024 sums for the kernels line."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops.lowrank import pad_rank
+
+    atol = rtol = 2e-2
+    keys = ("wmma_tiled_ms", "padded_wgmma_tiled_ms", "library_ms", "bound_ms")
+    sums = dict.fromkeys(keys, 0.0)
+    err_all = 0.0
+    for M in (DECODE_BATCH, 1024):
+        for name, N, K, R in KERNEL1_KV_SHAPES:
+            x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+            b = (torch.randn(R, K, generator=g, device="cuda") * K ** -0.5).bfloat16()
+            a = (torch.randn(N, R, generator=g, device="cuda") * R ** -0.5).bfloat16()
+            bias = (torch.randn(N, generator=g, device="cuda") * 0.1).bfloat16()
+            ref = fl.fused_lowrank_reference(x, a, b, bias)
+            pad = pad_rank({"A": a, "B": b, "b": bias})
+            runs = {"as is": lambda: fl.fused_lowrank_apply(x, a, b, bias),
+                    "padded": lambda: fl.fused_lowrank_apply(x, pad["A"], pad["B"], bias)}
+            line = f"  bfloat16 M={M:4d} {name:9s} N={N} K={K} R={R}"
+            for label, fn in runs.items():
+                out = fn()
+                form = fl.fused_lowrank_apply.last_form
+                torch.cuda.synchronize()
+                err = max_err(out, ref)[0]
+                ok = within(out, ref, atol, rtol)
+                err_all = max(err_all, err)
+                rank = R if label == "as is" else pad["A"].shape[1]
+                line += (f"; rank {label} ({rank}) form={form} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"fused_lowrank M={M} {name} R={R} {label}")
+            if M == 1024:
+                new_ms, old_ms, old2_ms, new2_ms = (
+                    timer.ms(runs[k]) for k in ("padded", "as is", "as is", "padded"))
+                l_ms = timer.ms(lambda: torch.nn.functional.linear(
+                    torch.matmul(x, b.t()), a, bias))
+                bms, by = bound((R * K + N * R + M * K + M * N + N) * 2,
+                                2 * M * R * (K + N), torch.bfloat16)
+                line += (f" | padded, wgmma_tiled {(new_ms + new2_ms) / 2 * 1e3:.1f} us,"
+                         f" as is, wmma_tiled {(old_ms + old2_ms) / 2 * 1e3:.1f} us (in turns"
+                         f" {new_ms * 1e3:.1f}/{old_ms * 1e3:.1f}/{old2_ms * 1e3:.1f}/"
+                         f"{new2_ms * 1e3:.1f} us), two matmuls {l_ms * 1e3:.1f} us, bound"
+                         f" {bms * 1e3:.1f} us ({by})")
+                for k_, v_ in zip(keys, ((old_ms + old2_ms) / 2, (new_ms + new2_ms) / 2,
+                                         l_ms, bms)):
+                    sums[k_] += v_
+            log(line)
+    log(f"  k_proj + v_proj at the KV-target ranks, M=1024 bf16: padded (wgmma_tiled) "
+        f"{sums['padded_wgmma_tiled_ms'] * 1e3:.1f} us, as is (wmma_tiled) "
+        f"{sums['wmma_tiled_ms'] * 1e3:.1f} us, two matmuls {sums['library_ms'] * 1e3:.1f}"
+        f" us, bound {sums['bound_ms'] * 1e3:.1f} us")
+    return dict(sums, max_abs_err=err_all,
+                shape="k_proj R=819 + v_proj R=409 of Llama-2-7B, M=1024, bf16")
+
+
 def phase_kernels(torch, timer, record):
     from asvd4llm_tpu_torch.ops import fused_lowrank as fl
     from asvd4llm_tpu_torch.ops import latent_attention as la
@@ -186,26 +276,27 @@ def phase_kernels(torch, timer, record):
 
     # kernel 1 ------------------------------------------------------------
     log("kernel fused_lowrank: y = (x·Bᵀ)·Aᵀ + bias vs fused_lowrank_reference")
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes": 0.0, "flops": 0.0}
-    err_main = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops", "old_ms")
+    sums = {M: dict.fromkeys(keys, 0.0) for M in KERNEL1_TIMED_M}
+    err_at = {M: 0.0 for M in KERNEL1_TIMED_M}
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol = tol[dtype]
-        for M in (1, DECODE_BATCH, 16, 1024):
+        for M in KERNEL1_M:
             for name, N, K, R in KERNEL1_SHAPES:
                 x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
                 b = (torch.randn(R, K, generator=g, device="cuda") * K ** -0.5).to(dtype)
                 a = (torch.randn(N, R, generator=g, device="cuda") * R ** -0.5).to(dtype)
                 bias = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
                 out = fl.fused_lowrank_apply(x, a, b, bias)
+                form = fl.fused_lowrank_apply.last_form
                 ref = fl.fused_lowrank_reference(x, a, b, bias)
                 torch.cuda.synchronize()
                 err, med_rel = max_err(out, ref)
                 ok = within(out, ref, atol, rtol)
                 line = (f"  {str(dtype)[6:]:8s} M={M:4d} {name:9s} N={N} K={K} R={R}"
-                        f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                        f" form={form} max_abs_err={err:.3e} median_rel={med_rel:.2e}"
                         f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and M in KERNEL1_TIMED_M:
                     isz = x.element_size()
                     nbytes = (R * K + N * R + M * K + M * N + N) * isz
                     flops = 2 * M * R * (K + N)
@@ -217,30 +308,54 @@ def phase_kernels(torch, timer, record):
                     line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
                              f" two matmuls {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
                              f" ({by})")
-                    if M == DECODE_BATCH:
-                        for k_, v_ in (("ms", k_ms), ("plain_ms", p_ms),
-                                       ("library_ms", l_ms), ("bound_ms", bms),
-                                       ("bytes", nbytes), ("flops", flops)):
-                            sums[k_] += v_
-                        err_main = max(err_main, err)
+                    o_ms = 0.0
+                    if form == "wgmma_tiled":
+                        # the split-K WMMA form on the same inputs, held against the
+                        # plain version too, then the new one again: old and new
+                        # compared in turns within this run
+                        old = fl._launch(x, a, b, bias, form="wmma_tiled")
+                        torch.cuda.synchronize()
+                        o_err = max_err(old, ref)[0]
+                        o_ok = within(old, ref, atol, rtol)
+                        line += (f"; form wmma_tiled max_abs_err={o_err:.3e}"
+                                 f" {'ok' if o_ok else 'FAIL'}")
+                        if not o_ok:
+                            failures.append(f"fused_lowrank wmma_tiled M={M} {name}")
+                        o_ms = timer.ms(lambda: fl._launch(x, a, b, bias, form="wmma_tiled"))
+                        k2_ms = timer.ms(lambda: fl.fused_lowrank_apply(x, a, b, bias))
+                        line += (f"; form wmma_tiled {o_ms * 1e3:.1f} us, {form} again"
+                                 f" {k2_ms * 1e3:.1f} us")
+                        k_ms = (k_ms + k2_ms) / 2
+                    for k_, v_ in zip(keys, (k_ms, p_ms, l_ms, bms, nbytes, flops, o_ms)):
+                        sums[M][k_] += v_
+                    err_at[M] = max(err_at[M], err)
                 log(line)
                 if not ok:
                     failures.append(f"fused_lowrank {dtype} M={M} {name}")
-    by = "bytes" if sums["bytes"] / HBM_BYTES_PER_S >= \
-        sums["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
     log(f"  timing: {timer.method}")
-    log(f"  one Llama-2-7B layer's 7 linears at M={DECODE_BATCH} bf16: kernel "
-        f"{sums['ms'] * 1e3:.1f} us, plain {sums['plain_ms'] * 1e3:.1f} us, two "
-        f"matmuls {sums['library_ms'] * 1e3:.1f} us, bound {sums['bound_ms'] * 1e3:.1f}"
-        f" us ({by}: {sums['bytes'] / 1e6:.1f} MB, {sums['flops'] / 1e9:.2f} GFLOP)")
+    kv_ranks = kernel1_unaligned_ranks(torch, timer, g, failures)
+
+    def k1_row(M):
+        sm = sums[M]
+        by = "bytes" if sm["bytes"] / HBM_BYTES_PER_S >= \
+            sm["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
+        log(f"  one Llama-2-7B layer's 7 linears at M={M} bf16: kernel "
+            f"{sm['ms'] * 1e3:.1f} us, plain {sm['plain_ms'] * 1e3:.1f} us, two "
+            f"matmuls {sm['library_ms'] * 1e3:.1f} us, bound {sm['bound_ms'] * 1e3:.1f}"
+            f" us ({by}: {sm['bytes'] / 1e6:.1f} MB, {sm['flops'] / 1e9:.2f} GFLOP), "
+            f"{100 * sm['bound_ms'] / sm['ms']:.1f}% of the bound"
+            + (f"; form wmma_tiled {sm['old_ms'] * 1e3:.1f} us" if sm["old_ms"] else ""))
+        return {"max_abs_err": err_at[M], "ms": sm["ms"], "plain_ms": sm["plain_ms"],
+                "bound_ms": sm["bound_ms"], "bound_by": by, "library_ms": sm["library_ms"],
+                "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={M}, bf16"}
+    rows = {M: k1_row(M) for M in KERNEL1_TIMED_M}
     record["fused_lowrank"] = {
         "name": "fused_lowrank", "route": "cuda",
         "source": "asvd4llm_tpu_torch/csrc/fused_lowrank.cu",
         "replaces": "asvd4llm_tpu/ops/pallas_lowrank.py:118",
-        "max_abs_err": err_main, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
-        "bound_ms": sums["bound_ms"], "bound_by": by,
-        "library_ms": sums["library_ms"],
-        "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={DECODE_BATCH}, bf16",
+        **rows[DECODE_BATCH],
+        "m1024": dict(rows[1024], form="wgmma_tiled", wmma_tiled_ms=sums[1024]["old_ms"]),
+        "m1024_kv_target_ranks": kv_ranks,
     }
 
     # kernel 2 ------------------------------------------------------------
@@ -252,8 +367,13 @@ def phase_kernels(torch, timer, record):
         ("gqa4", 4, 32, 8, 128, 544, 1024, 768, 543, 0.0, 0),
         ("sliding", 4, 32, 32, 128, 544, 1024, 1024, 500, 0.0, 128),
         ("softcap", 4, 32, 8, 128, 544, 1024, 1024, 543, 50.0, 0),
+        ("mha_b1", 1, 32, 32, 128, 544, 1024, 1024, 543, 0.0, 0),
+        ("mha_t2048", 4, 32, 32, 128, 2048, 1024, 1024, 2047, 0.0, 0),
+        ("kv_target", 4, 32, 32, 128, 544, 819, 409, 543, 0.0, 0),   # ranks of the run
     ]
+    timed = ("mha", "gqa4", "mha_b1", "mha_t2048", "kv_target")
     main = None
+    extra = {}
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
         for label, B, H, KV, hd, T, Rk, Rv, pos, cap, sw in cases:
@@ -269,42 +389,79 @@ def phase_kernels(torch, timer, record):
             cos, sin = emb.cos().contiguous(), emb.sin().contiguous()
             kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
             out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos, **kw)
+            form = la.latent_decode_attention.last_form
             ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
             torch.cuda.synchronize()
             err, med_rel = max_err(out, ref)
             ok = within(out, ref, atol, rtol)
-            line = (f"  {str(dtype)[6:]:8s} {label:8s} B={B} H={H} KV={KV} hd={hd} T={T}"
-                    f" Rk={Rk} Rv={Rv} pos={pos} max_abs_err={err:.3e}"
+            line = (f"  {str(dtype)[6:]:8s} {label:9s} B={B} H={H} KV={KV} hd={hd} T={T}"
+                    f" Rk={Rk} Rv={Rv} pos={pos} form={form} max_abs_err={err:.3e}"
                     f" median_rel={med_rel:.2e} tol=atol {atol:g} + rtol {rtol:g}"
                     f" {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"latent_attention {dtype} {label}")
-            if dtype == torch.bfloat16 and label in ("mha", "gqa4"):
+            if dtype == torch.bfloat16 and label in timed:
                 live = pos + 1 if sw <= 0 else min(pos + 1, sw)
                 isz = tk.element_size()
                 nbytes = (B * live * (Rk + Rv) + KV * hd * Rk + B * H * hd) * isz \
                     + B * H * Rv * 4 + 2 * live * hd * 4
                 flops = 2 * B * live * (Rk * KV * hd + H * hd + H * Rv)
                 bms, by = bound(nbytes, flops, dtype)
-                k_ms = timer.ms(lambda: la._latent_attention_core(
-                    q, tk, tv, a_k, cos, sin, pos, **kw))
+                # the split form on the caches and A_k zero-padded to ranks that are
+                # multiples of 8 (what align_ranks gives; the same inputs where they
+                # are already), and the tile32 form on the caches as they are: both
+                # held against the plain version, then timed in turns
+                pk, pv, pa = (torch.nn.functional.pad(t, (0, -t.shape[-1] % 8))
+                              for t in (tk, tv, a_k))
+
+                def new():
+                    return la._latent_attention_core(q, pk, pv, pa, cos, sin, pos,
+                                                     form="split_wgmma", **kw)
+
+                def old():
+                    return la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos,
+                                                     form="tile32", **kw)
+                for fname, fn in (("split_wgmma", new), ("tile32", old)):
+                    got = fn()
+                    torch.cuda.synchronize()
+                    f_err = max_err(got[..., :Rv], ref)[0]
+                    f_ok = within(got[..., :Rv], ref, atol, rtol) and \
+                        not bool(got[..., Rv:].any())
+                    line += f"; form {fname} max_abs_err={f_err:.3e} {'ok' if f_ok else 'FAIL'}"
+                    if not f_ok:
+                        failures.append(f"latent_attention {fname} {label}")
+                k_ms, o_ms, o2_ms, k2_ms = (timer.ms(fn) for fn in (new, old, old, new))
                 p_ms = timer.ms(lambda: la.latent_attention_reference(
                     q, tk, tv, a_k, cos, sin, pos, **kw))
                 l_ms = timer.ms(lambda: _sdpa_latent(torch, q, tk, tv, a_k, cos, sin,
                                                      KV, hd))
-                line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
-                         f" unfused+SDPA {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
-                         f" ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                turns = f"{k_ms * 1e3:.1f}/{o_ms * 1e3:.1f}/{o2_ms * 1e3:.1f}/{k2_ms * 1e3:.1f}"
+                k_ms, o_ms = (k_ms + k2_ms) / 2, (o_ms + o2_ms) / 2
+                line += (f" | form split_wgmma{' (ranks padded)' if Rk % 8 or Rv % 8 else ''}"
+                         f" {k_ms * 1e3:.1f} us (in turns new/old/old/new {turns}"
+                         f" us), form tile32 {o_ms * 1e3:.1f} us, plain"
+                         f" {p_ms * 1e3:.1f} us, unfused+SDPA {l_ms * 1e3:.1f} us, bound"
+                         f" {bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB,"
+                         f" {flops / 1e9:.2f} GFLOP), {100 * bms / k_ms:.1f}% of the bound")
+                if label != "kv_target":
+                    acts = timer.by_activity(new)
+                    line += "; device us by launch: " + ", ".join(
+                        f"{n} {us:.1f}" for n, us in acts.items())
+                row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": l_ms, "tile32_ms": o_ms}
                 if label == "mha":
-                    main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                            "bound_ms": bms, "bound_by": by, "library_ms": l_ms}
+                    main = row
+                else:
+                    extra[label] = dict(row, shape=f"B={B} H={H} KV={KV} hd={hd} T={T} "
+                                        f"Rk={Rk} Rv={Rv} pos={pos} bf16")
             log(line)
     record["latent_attention"] = {
         "name": "latent_attention", "route": "cuda",
         "source": "asvd4llm_tpu_torch/csrc/latent_attention.cu",
         "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:284",
         **main,
-        "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16",
+        "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16, form split_wgmma",
+        **extra,
     }
     phase_quant_kernels(torch, timer, record, failures)
     phase_paged_kernels(torch, timer, record, failures)
@@ -472,9 +629,17 @@ def kernel_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def form_counts():
+    """Launches by form of the kernels that have several (1 and 2)."""
+    return {name: dict(fn.form_launches) for name, fn in _counted().items()
+            if hasattr(fn, "form_launches")}
+
+
 def reset_kernel_counts():
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = {}
 
 
 def _sdpa_latent(torch, q, tk, tv, a_k, cos, sin, KV, hd, mask=None):
@@ -717,7 +882,10 @@ def step_check(torch, out, prompt, *, latent_kv, steps=16):
     from asvd4llm_tpu_torch.eval.generate import (
         decode_step, init_caches, prefill_host,
     )
-    params, spec = out["params"], out["spec"]
+    from asvd4llm_tpu_torch.ops.lowrank import align_ranks
+
+    # ranks padded to the kernels' multiple, as generate(use_pallas=True) does
+    params, spec = align_ranks(out["params"], out["spec"]), out["spec"]
     dev = params["embed_tokens"].device
     ids = torch.as_tensor(prompt, device=dev)
     B, S = ids.shape
@@ -810,7 +978,8 @@ def kernels_at_path_shapes(torch, params, spec, caches, pos):
         err, _ = max_err(out, ref)
         ok = within(out, ref, 2e-2, 2e-2)
         log(f"  fused_lowrank at {name} (M={B}, N={leaf['A'].shape[0]}, "
-            f"K={leaf['B'].shape[1]}, R={leaf['A'].shape[1]}): max_abs_err {err:.3e} "
+            f"K={leaf['B'].shape[1]}, R={leaf['A'].shape[1]}, form "
+            f"{fl.fused_lowrank_apply.last_form}): max_abs_err {err:.3e} "
             f"tol=atol 0.02 + rtol 0.02 {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"fused_lowrank disagrees with its plain version at {name}")
@@ -833,7 +1002,8 @@ def kernels_at_path_shapes(torch, params, spec, caches, pos):
         err, _ = max_err(out, ref)
         ok = within(out, ref, 1e-2, 1e-2)
         log(f"  latent_attention at layer {i} (B={B} H={H} KV={KV} hd={hd} T={T} "
-            f"Rk={tk.shape[2]} Rv={tv.shape[2]} pos={pos}): max_abs_err {err:.3e} "
+            f"Rk={tk.shape[2]} Rv={tv.shape[2]} pos={pos}, form "
+            f"{la.latent_decode_attention.last_form}): max_abs_err {err:.3e} "
             f"tol=atol 0.01 + rtol 0.01 {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"latent_attention disagrees with its plain version "
@@ -901,8 +1071,11 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
         out = run_cli(torch, ckpt, work, flags, sizes, device)
         if latent_kv is not None:
             greedy(torch, out, prompt, latent_kv=latent_kv)
-        counts = kernel_counts()
-        log(f"  kernel launches in this run: {counts}")
+        counts, forms = kernel_counts(), form_counts()
+        log(f"  kernel launches in this run: {counts}; by form: {forms}")
+        for kernel, form in MAIN_FORMS.get(run, {}).items():
+            if not forms[kernel].get(form):
+                raise AssertionError(f"{run}: {kernel} never ran its {form} form")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         counts_by_run[run] = counts
@@ -912,6 +1085,13 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
             models[run] = (out["params"], out["spec"])
         del out
     return counts_by_run
+
+
+# the tensor-core form each run's kernel-path work must take: the PPL eval
+# at M=1024 and, in the KV-target run, the latent decode (its ranks padded)
+MAIN_FORMS = {"weight target": {"fused_lowrank": "wgmma_tiled"},
+              "KV-cache target": {"fused_lowrank": "wgmma_tiled",
+                                  "latent_attention": "split_wgmma"}}
 
 
 # ------------------------------------------------------------------ serve
@@ -1086,7 +1266,7 @@ def phase_serve(torch, models, launches):
             + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items())
             + f"; prefix tokens skipped {st['prefix_tokens_skipped']}; decode step "
             f"{step_ms:.2f} ms")
-        log(f"  kernel launches in this run: {counts}")
+        log(f"  kernel launches in this run: {counts}; by form: {form_counts()}")
         if opts.get("prefix_cache") and st["prefix_tokens_skipped"] <= 0:
             raise AssertionError("the shared prefix was never served from the prefix cache")
         want = kernel or ("paged_latent_attention" if eng.latent == "kv"
@@ -1138,6 +1318,8 @@ def main(argv=None) -> int:
         for ln in out.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas {name}: {ln.strip()}")
+    for name, kernel, regs, spill in new_form_ptxas(_build.build_logs):
+        log(f"  ptxas, new form {kernel} ({name}.cu): {regs}; {spill}")
 
     timer = Timer(torch)
     record: dict = {}

@@ -89,6 +89,70 @@ def test_fused_lowrank_large_m_and_bad_inputs(cuda):
         fl.fused_lowrank_apply(x.half(), a.half(), b.half(), None)
 
 
+# The tiled form's edges: M across its 64- and 128-row tiles, N and R not
+# multiples of the output tiles (128, 192 or 256 wide), the last a
+# Llama-2-7B linear at the PPL eval's M.
+WGMMA_SHAPES = [  # (M, K, N, R)
+    (17, 256, 130, 40), (63, 320, 200, 72), (64, 512, 136, 200), (65, 264, 300, 24),
+    (127, 512, 1000, 136), (128, 1024, 520, 264), (129, 4096, 4100, 1928),
+    (512, 1024, 1032, 648), (1000, 4096, 11008, 2688), (1024, 4096, 4096, 1920),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,R", WGMMA_SHAPES)
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_lowrank_wgmma_form_edges(cuda, M, K, N, R, bias):
+    rng = np.random.RandomState(M + N)
+    x = torch.from_numpy(_randn(rng, M, K)).to(cuda, torch.bfloat16)
+    a = torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda, torch.bfloat16)
+    bv = torch.from_numpy(_randn(rng, N, scale=0.1)).to(cuda, torch.bfloat16) if bias else None
+    assert fl._form(M, K, R, torch.bfloat16) == "wgmma_tiled"
+    n0 = fl.fused_lowrank_apply.launches
+    out = fl.fused_lowrank_apply(x, a, b, bv)
+    torch.cuda.synchronize()
+    assert fl.fused_lowrank_apply.launches == n0 + 1
+    assert fl.fused_lowrank_apply.last_form == "wgmma_tiled"
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), fl.fused_lowrank_reference(x, a, b, bv).float(),
+                               atol=tol, rtol=tol)
+
+
+# Ranks that are not multiples of 8 above M=16: A's rows are not 16-byte
+# aligned, so a call with such factors as they are takes the WMMA form;
+# the same factors zero-padded by pad_rank (as align_ranks pads a model's)
+# take the wgmma form and give the same y. The last two are the KV-target
+# run's k/v ranks at Llama-2-7B width, at the PPL eval's M.
+UNALIGNED_RANK_SHAPES = [  # (M, K, N, R)
+    (17, 256, 130, 37), (100, 512, 300, 50), (129, 1024, 520, 203),
+    (1024, 4096, 4096, 819), (1024, 4096, 4096, 409),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,R", UNALIGNED_RANK_SHAPES)
+def test_fused_lowrank_unaligned_rank_forms(cuda, M, K, N, R):
+    from asvd4llm_tpu_torch.ops.lowrank import pad_rank
+    rng = np.random.RandomState(M + R)
+    x = torch.from_numpy(_randn(rng, M, K)).to(cuda, torch.bfloat16)
+    a = torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda, torch.bfloat16)
+    bv = torch.from_numpy(_randn(rng, N, scale=0.1)).to(cuda, torch.bfloat16)
+    ref = fl.fused_lowrank_reference(x, a, b, bv).float()
+    pad = pad_rank({"A": a, "B": b, "b": bv})
+    tol = TOL["bfloat16"]
+    for leaf, form in (({"A": a, "B": b}, "wmma_tiled"), (pad, "wgmma_tiled")):
+        assert fl._form(M, K, leaf["A"].shape[1], torch.bfloat16) == form
+        n0 = fl.fused_lowrank_apply.launches
+        out = fl.fused_lowrank_apply(x, leaf["A"], leaf["B"], bv)
+        torch.cuda.synchronize()
+        assert fl.fused_lowrank_apply.launches == n0 + 1
+        assert fl.fused_lowrank_apply.last_form == form
+        torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+
+
 LATENT_CASES = {
     # name: (B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding)
     "mha_full": (2, 8, 8, 128, 96, 200, 160, 95, 0.0, 0),
@@ -126,6 +190,82 @@ def test_latent_attention_kernel_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(
         out, la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw),
         atol=tol, rtol=tol)
+
+
+def _latent_case_inputs(rng, cuda, dt, B, H, KV, hd, T, Rk, Rv):
+    q = torch.from_numpy(_randn(rng, B, H, hd)).to(cuda, dt)
+    tk = torch.from_numpy(_randn(rng, B, T, Rk, scale=0.3)).to(cuda, dt)
+    tv = torch.from_numpy(_randn(rng, B, T, Rv, scale=0.3)).to(cuda, dt)
+    a_k = torch.from_numpy(_randn(rng, KV * hd, Rk, scale=Rk ** -0.5)).to(cuda, dt)
+    inv = 1.0 / (10000.0 ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    fr = np.arange(T, dtype=np.float32)[:, None] * inv[None, :]
+    emb = np.concatenate([fr, fr], axis=-1)
+    return (q, tk, tv, a_k, torch.from_numpy(np.cos(emb)).to(cuda),
+            torch.from_numpy(np.sin(emb)).to(cuda))
+
+
+# The split form's edges (bf16): chunks of 128 keys, 1, 2 and 5 of them
+# with a ragged last one, pos before the end of the cache, sliding windows
+# that leave whole chunks out, rep 1/4/16, head dims 64/128 (256 takes the
+# one-block-per-row form), and the smoke's MHA shape at T=2048.
+SPLIT_EDGE_CASES = {
+    # name: (B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding)
+    "b1_one_key": (1, 8, 8, 128, 1, 64, 64, 0, 0.0, 0),
+    "b1_two_chunks_ragged": (1, 8, 8, 128, 200, 136, 72, 199, 0.0, 0),
+    "five_chunks_ragged": (2, 8, 2, 128, 600, 256, 192, 599, 0.0, 0),
+    "pos_before_end": (2, 4, 4, 128, 600, 128, 64, 301, 0.0, 0),
+    "sliding_skips_chunks": (2, 8, 8, 128, 640, 64, 64, 600, 0.0, 100),
+    "sliding_softcap_hd64": (1, 8, 2, 64, 512, 72, 40, 511, 30.0, 129),
+    "rep4_hd64": (2, 16, 4, 64, 300, 96, 72, 250, 0.0, 0),
+    "rep16_hd128": (1, 16, 1, 128, 260, 64, 56, 259, 0.0, 0),
+    "hd256_tile32": (1, 4, 2, 256, 200, 64, 64, 199, 0.0, 0),
+    "mha_smoke_t2048": (1, 32, 32, 128, 2048, 1024, 1024, 2047, 0.0, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SPLIT_EDGE_CASES))
+def test_latent_attention_split_form_edges(cuda, case):
+    B, H, KV, hd, T, Rk, Rv, pos, cap, sw = SPLIT_EDGE_CASES[case]
+    rng = np.random.RandomState(len(case) + T)
+    args = _latent_case_inputs(rng, cuda, torch.bfloat16, B, H, KV, hd, T, Rk, Rv)
+    kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+    want = "split_wgmma" if hd in (64, 128) else "tile32"
+    assert la._form(torch.bfloat16, hd, Rk, Rv) == want
+    n0 = la.latent_decode_attention.launches
+    out = la._latent_attention_core(*args, pos, **kw)
+    torch.cuda.synchronize()
+    assert la.latent_decode_attention.launches == n0 + 1
+    assert la.latent_decode_attention.last_form == want
+    assert out.dtype == torch.float32 and out.shape == (B, H, Rv)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(out, la.latent_attention_reference(*args, pos, **kw),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,pos", [(4, 544, 543), (1, 300, 200)])
+def test_latent_attention_padded_ranks_take_split_form(cuda, B, T, pos):
+    """The KV-target run's ranks (819, 409): as they are the tile32 form,
+    zero-padded to multiples of 8 the split form, the same s (0 in the
+    added columns)."""
+    H = KV = 32
+    hd, Rk, Rv = 128, 819, 409
+    rng = np.random.RandomState(T)
+    q, tk, tv, a_k, cos, sin = _latent_case_inputs(rng, cuda, torch.bfloat16,
+                                                   B, H, KV, hd, T, Rk, Rv)
+    kw = dict(scale=hd ** -0.5, softcap=0.0, sliding=0, kv_heads=KV)
+    ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
+    pk, pv, pa = (torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)) for t in (tk, tv, a_k))
+    tol = TOL["bfloat16"]
+    for args, form in (((tk, tv, a_k), "tile32"), ((pk, pv, pa), "split_wgmma")):
+        n0 = la.latent_decode_attention.launches
+        out = la._latent_attention_core(q, *args, cos, sin, pos, **kw)
+        torch.cuda.synchronize()
+        assert la.latent_decode_attention.launches == n0 + 1
+        assert la.latent_decode_attention.last_form == form
+        assert not out[..., Rv:].any()
+        torch.testing.assert_close(out[..., :Rv], ref, atol=tol, rtol=tol)
 
 
 def _tiny_lowrank_llama(device):
