@@ -399,7 +399,7 @@ __device__ void tile_finish(const Tile<T>& s, float* out_heads, int SV, int rep)
 // once. A block leaves its chunk's running max, denominator and numerator
 // (not divided) in a workspace: ws_ml [B, KV, NS, rep, 2] and ws_s [B, KV,
 // NS, rep, SV] f32, with den = 0 marking a chunk that holds no live key; a
-// second launch combines the chunks of each head:
+// second launch (combine_chunks) combines the chunks of each head:
 //   M = max_j m_j,  w_j = exp(m_j − M),  out = Σ_j w_j·s_j / Σ_j w_j·den_j
 constexpr int kSplit = 128;  // keys per chunk, a multiple of kTT
 
@@ -419,32 +419,40 @@ __device__ inline void mark_empty_split(float* ws_ml, int rep) {
   }
 }
 
-// grid (KV, B); out [B, H, SV] f32.
+// out[b][h][v] = Σ_j e^(m_j − M)·s_j / Σ_j e^(m_j − M)·den_j over the chunks
+// j of head h with den_j > 0, one thread per output value: the second launch
+// of every split kernel (2, 5 and 6, every form). Grid (cdiv(SV, kThreads),
+// H, B); out [B, H, SV] f32.
 __global__ void __launch_bounds__(kThreads)
-combine_splits(const float* __restrict__ ws_s, const float* __restrict__ ws_ml,
+combine_chunks(const float* __restrict__ ws_s, const float* __restrict__ ws_ml,
                float* __restrict__ out, int H, int KV, int NS, int SV) {
-  const int rep = H / KV;
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+  const int v = blockIdx.x * kThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (v >= SV) return;
+  const int rep = H / KV, g = h / rep, r = h % rep;
   const size_t base = ((size_t)b * KV + g) * NS;
-  for (int i = threadIdx.x; i < rep * SV; i += kThreads) {
-    const int r = i / SV, v = i % SV;
-    float M = kNeg;
-    for (int j = 0; j < NS; ++j) {
-      const float* ml = ws_ml + ((base + j) * rep + r) * 2;
-      if (ml[1] > 0.f) M = fmaxf(M, ml[0]);
-    }
-    float den = 0.f, num = 0.f;
-    for (int j = 0; j < NS; ++j) {
-      const float* ml = ws_ml + ((base + j) * rep + r) * 2;
-      if (ml[1] > 0.f) {
-        const float w = expf(ml[0] - M);
-        den = fmaf(w, ml[1], den);
-        num = fmaf(w, ws_s[((base + j) * rep + r) * SV + v], num);
-      }
-    }
-    out[((size_t)b * H + (size_t)g * rep + r) * SV + v] = num / den;
+  float M = kNeg;
+  for (int j = 0; j < NS; ++j) {
+    const float* ml = ws_ml + ((base + j) * rep + r) * 2;
+    if (ml[1] > 0.f) M = fmaxf(M, ml[0]);
   }
+  float den = 0.f, num = 0.f;
+  for (int j = 0; j < NS; ++j) {
+    const float* ml = ws_ml + ((base + j) * rep + r) * 2;
+    if (ml[1] > 0.f) {
+      const float w = expf(ml[0] - M);
+      den = fmaf(w, ml[1], den);
+      num = fmaf(w, ws_s[((base + j) * rep + r) * SV + v], num);
+    }
+  }
+  out[((size_t)b * H + h) * SV + v] = num / den;
+}
+
+inline cudaError_t launch_combine(const float* ws_s, const float* ws_ml, float* out, int B,
+                                  int H, int KV, int NS, int SV, cudaStream_t stream) {
+  combine_chunks<<<dim3((SV + kThreads - 1) / kThreads, H, B), kThreads, 0, stream>>>(
+      ws_s, ws_ml, out, H, KV, NS, SV);
+  return cudaGetLastError();
 }
 
 // Number of chunks of a row of MP·P keys.

@@ -21,29 +21,55 @@
 // R = 1920 is 15.7 MB) against M·R·(K+N) multiply-adds, far below the
 // ridge for M <= 16. At M = 1024 the tensor cores bound it.
 //
-// Design (kernel 1's, fused_lowrank.cu, with the dequantization moved out
-// of the products):
-//   * split-K partial sums meet with f32 atomicAdd in a zeroed scratch, so
+// Forms, chosen by the wrapper (`ops/fused_lowrank_q.py::_form_q8`) and
+// passed in:
+//   * "wgmma_tiled" (bf16, M > 16, K and R multiples of 8, code rows
+//     16-byte aligned: ldb and lda multiples of 16): two launches of
+//     `sm90::gemm_nt_i8` (gemm_sm90.cuh), kernel 1's TMA-fed wgmma GEMM with
+//     the int8 codes loaded by TMA next to the bf16 X stage and converted to
+//     bf16 in shared memory by the consumer warpgroups (the byte permute
+//     into a magic float of the decode form, written in the 128-byte
+//     swizzle the wgmma descriptors expect), each stage while the tensor
+//     cores run the previous one's products; one conversion of a W stage
+//     serves the whole 128-row X tile. Stage 1
+//     computes acc = x·B8ᵀ over all of K and rowsum(x) from the x stages it
+//     streams anyway (a 64 x 8 wgmma against ones beside each product); its
+//     epilogue applies B's correction and rounds t once to bf16. Stage 2
+//     computes t·A8ᵀ over R and rowsum(t) of the rounded values the same
+//     way, applies A's correction, adds the bias in f32 and rounds once. No
+//     memset, atomics, row-sum or finishing launches. The codes reach the
+//     tensor cores as bf16, where they are exact.
+//   * The split-K forms, for everything else: kernel 1's earlier design
+//     (fused_lowrank.cu) with the dequantization moved out of the products.
+//     Split-K partial sums meet with f32 atomicAdd in a zeroed scratch, so
 //     the B correction and the rounding of t cannot happen per split: they
 //     run in a small launch (`finish_t`) that reads the finished f32 sums,
 //     writes the rounded t and its row sums. rowsum(x) is its own small
 //     launch over all of K. Both spread each row over many blocks. The A
-//     correction and the bias run in the finishing launch.
-//   * bf16, M <= 16 (`skinny_i8`): mma.sync m16n8k16 with the operands
-//     swapped (16 W rows on the MMA's 16-row side). A lane's 16-byte load
-//     now holds 16 codes of one row (not 8 bf16 values): it converts them
-//     in registers to eight bf16 pairs (a byte permute into a magic float,
-//     one subtract, one pack) and feeds four MMAs; X is read from shared
-//     memory at the same 16 columns, so W and X see one permutation of k.
-//   * bf16, M > 16 (`tiled_i8`): 64 x 64 output tiles on WMMA, 64-deep
-//     stages; the codes are converted to bf16 on their way into shared
-//     memory.
-//   * f32, and bf16 shapes whose code rows are not 16-byte aligned or
-//     whose K is not a multiple of 16: the CUDA-core forms of
-//     lowrank_common.cuh.
+//     correction and the bias run in the finishing launch. The products:
+//     - "mma_skinny" (bf16, M <= 16, `skinny_i8`): mma.sync m16n8k16 with the operands
+//       swapped (16 W rows on the MMA's 16-row side). A lane's 16-byte load
+//       holds 16 codes of one row (not 8 bf16 values): it converts them in
+//       registers to eight bf16 pairs (a byte permute into a magic float,
+//       one subtract, one pack) and feeds four MMAs; X is read from shared
+//       memory at the same 16 columns, so W and X see one permutation of k.
+//     - "wmma_tiled" (bf16, M > 16, ranks or code rows the wgmma form does
+//       not take): 64 x 64 output tiles on WMMA, 64-deep stages; the codes
+//       are converted to bf16 on their way into shared memory.
+//     - "cuda_cores" (f32, and bf16 shapes whose code rows are not 16-byte
+//       aligned or whose K is not a multiple of 16): the CUDA-core forms of
+//       lowrank_common.cuh.
+// Known costs of the wgmma form, for later work: the conversion sets its
+// time (every row tile of x converts the same W stage again, 8 times at
+// M = 1024, and its 48 KB of shared-memory traffic a stage at 128 x 256 come
+// on top of the products' own); three converter warps running stages ahead
+// of the consumers were slower. A register-sourced A operand (W·xᵀ, the
+// codes converted straight into wgmma's A registers) would drop the
+// converted tile's stores, but rowsum(x) would then leave the tensor cores.
 
 #include <mma.h>
 
+#include "gemm_sm90.cuh"
 #include "lowrank_common.cuh"
 
 namespace {
@@ -119,7 +145,7 @@ skinny_i8(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
 // The same product for M > 16: a 64 x 64 output tile per block, warp w
 // computing rows 32·(w/2).. and columns 32·(w%2).. as 2 x 2 WMMA fragments.
 __global__ void __launch_bounds__(128)
-tiled_i8(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
+wmma_tiled(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
          float* __restrict__ acc, int M, int N, int K, int k_chunk, bool xvec) {
   using namespace nvcuda;
   __shared__ __align__(32) bf16 xs[kTile * kTileLd];
@@ -261,7 +287,7 @@ void launch_nt(const T* X, const int8_t* W, int ldw, float* acc, int M, int N, i
   }
   const int base = cdiv(N, kTile) * cdiv(M, kTile);
   const int k_chunk = k_chunk_for(K, base, 2, kTileK, 4);
-  tiled_i8<<<dim3(cdiv(N, kTile), cdiv(M, kTile), cdiv(K, k_chunk)), 128, 0, s>>>(
+  wmma_tiled<<<dim3(cdiv(N, kTile), cdiv(M, kTile), cdiv(K, k_chunk)), 128, 0, s>>>(
       Xb, W, ldw, acc, M, N, K, k_chunk, xvec);
 }
 
@@ -286,19 +312,70 @@ int run(const T* x, const int8_t* b8, const float* bsc, const float* bzp, const 
   return (int)cudaGetLastError();
 }
 
+// Sixteen int8 codes as sixteen bf16 values, exactly (gemm_nt_i8's Cvt):
+// each code through the magic float of i8x4_to_bf16, then the high halves
+// of two floats packed by one byte permute (an integer of magnitude <= 128
+// has no f32 mantissa bits below bf16's, so truncation is exact).
+struct CodesToBf16 {
+  __device__ __forceinline__ static void four(uint32_t w, uint32_t& p01, uint32_t& p23) {
+    const uint32_t u = w ^ 0x80808080u;
+    const float off = 8388608.f + 128.f;
+    const uint32_t f0 = __float_as_uint(byte_magic(u, 0) - off);
+    const uint32_t f1 = __float_as_uint(byte_magic(u, 1) - off);
+    const uint32_t f2 = __float_as_uint(byte_magic(u, 2) - off);
+    const uint32_t f3 = __float_as_uint(byte_magic(u, 3) - off);
+    p01 = __byte_perm(f0, f1, 0x7632);
+    p23 = __byte_perm(f2, f3, 0x7632);
+  }
+  __device__ __forceinline__ void operator()(uint4 v, uint4& lo, uint4& hi) const {
+    four(v.x, lo.x, lo.y);
+    four(v.y, lo.z, lo.w);
+    four(v.z, hi.x, hi.y);
+    four(v.w, hi.z, hi.w);
+  }
+};
+
+// The wgmma form: t = T(bsc·(x·B8ᵀ) − bsc·bzp·rowsum(x)) into `t` [M, R],
+// then y = T(asc·(t·A8ᵀ) − asc·azp·rowsum(t) + bias).
+int run_sm90(const bf16* x, const int8_t* b8, const float* bsc, const float* bzp,
+             const int8_t* a8, const float* asc, const float* azp, const bf16* bias, bf16* y,
+             bf16* t, int M, int K, int R, int N, int ldb, int lda, cudaStream_t s) {
+  if (M <= kSkinnyMaxM || K % 8 != 0 || R % 8 != 0 || ldb % 16 != 0 || lda % 16 != 0 ||
+      !aligned16(x) || !aligned16(b8) || !aligned16(a8) || !aligned16(t))
+    return (int)cudaErrorInvalidValue;
+  const auto* B8 = reinterpret_cast<const uint8_t*>(b8);
+  const auto* A8 = reinterpret_cast<const uint8_t*>(a8);
+  cudaError_t err =
+      sm90::launch_gemm_nt_i8<CodesToBf16>(x, B8, ldb, t, bsc, bzp, nullptr, M, R, K, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sm90::launch_gemm_nt_i8<CodesToBf16>(t, A8, lda, y, asc, azp, bias, M, N, R, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x [M,K] and y [M,N] of the io type;
 // b8 int8 codes, R rows `ldb` apart (ldb >= K), bsc/bzp [R] f32; a8 int8
 // codes, N rows `lda` apart (lda >= R), asc/azp [N] f32; bias [N] of the io
-// type or null; scratch holds M·(R+N+2) f32 values (zeroed here), t M·R
-// values of the io type. Returns cudaGetLastError() after the launches (0 = success).
+// type or null; t holds M·R values of the io type. form: 0 = the split-K
+// forms (scratch holds M·(R+N+2) f32 values, zeroed here), 1 = the wgmma
+// form (bf16 only; scratch unused). Returns cudaGetLastError() after the
+// launches (0 = success), cudaErrorInvalidValue for a form the shape does
+// not allow.
 extern "C" int fused_lowrank_q8_launch(const void* x, const void* b8, const void* bsc,
                                        const void* bzp, const void* a8, const void* asc,
                                        const void* azp, const void* bias, void* y,
                                        void* scratch, void* t, int M, int K, int R, int N,
-                                       int ldb, int lda, int dtype, void* stream) {
+                                       int ldb, int lda, int form, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return run_sm90(static_cast<const bf16*>(x), static_cast<const int8_t*>(b8),
+                    static_cast<const float*>(bsc), static_cast<const float*>(bzp),
+                    static_cast<const int8_t*>(a8), static_cast<const float*>(asc),
+                    static_cast<const float*>(azp), static_cast<const bf16*>(bias),
+                    static_cast<bf16*>(y), static_cast<bf16*>(t), M, K, R, N, ldb, lda, s);
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   const auto* B8 = static_cast<const int8_t*>(b8);
   const auto* A8 = static_cast<const int8_t*>(a8);
   const auto* Bsc = static_cast<const float*>(bsc);

@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core forms written for
 // this card: mbarriers, TMA tile loads, wgmma matrix descriptors and products,
-// the host-side tensor-map encoder, and `gemm_nt`, a pipelined wgmma GEMM
-// with a rounding epilogue (kernel 1's tiled form, fused_lowrank.cu). Kernel 2's
-// split form (latent_attention.cu) runs its up-projection on the same pieces.
+// the host-side tensor-map encoder, `gemm_nt`, a pipelined wgmma GEMM with a
+// rounding epilogue (kernel 1's tiled form, fused_lowrank.cu), and
+// `gemm_nt_i8`, the same GEMM with an int8-coded weight operand converted to
+// bf16 in shared memory and a per-column dequantizing epilogue (kernel 3's
+// tiled form, fused_lowrank_q8.cu). The split tile of kernels 2 and 6
+// (latent_split.cuh) runs its up-projection on the same pieces.
 //
 // Operand layout, the one wgmma reads without transposing: both operands
 // K-major (rows of K contiguous values), each stage tile [rows][64] bf16 =
@@ -69,6 +72,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operand reads, TMA) after the next barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------------ TMA
@@ -291,11 +300,14 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64
 
 // ------------------------------------------------------------------ host side
 
-// A bf16 tensor map of `rank` dimensions (innermost first) with a box of
-// `box` elements, 128-byte swizzle, zero fill outside the tensor. The
-// driver's encoder is found through the runtime, so nothing links libcuda.
+// A tensor map of `rank` dimensions (innermost first) with a box of `box`
+// elements, zero fill outside the tensor: bf16 with the 128-byte swizzle by
+// default, or another element type and swizzle. The driver's encoder is
+// found through the runtime, so nothing links libcuda.
 inline cudaError_t encode_map(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
-                              const cuuint64_t* strides_bytes, const cuuint32_t* box) {
+                              const cuuint64_t* strides_bytes, const cuuint32_t* box,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -312,9 +324,9 @@ inline cudaError_t encode_map(CUtensorMap* map, int rank, const void* base, cons
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = encode(map, type, (cuuint32_t)rank,
                             const_cast<void*>(base), dims, strides_bytes, box, ones,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -510,6 +522,223 @@ cudaError_t launch_gemm_nt(const T* X, const T* W, T* out, const T* bias, int M,
     case 1192: return launch_gemm_tile<1, 192>(mx, mw, out, bias, M, N, K, stream);
     case 1176: return launch_gemm_tile<1, 176>(mx, mw, out, bias, M, N, K, stream);
     default: return launch_gemm_tile<1, 128>(mx, mw, out, bias, M, N, K, stream);
+  }
+}
+
+// ---------------------------------------------------------------- gemm_nt_i8
+
+// Stages of gemm_nt_i8: a tile of ones [8][64] and three converted bf16 W
+// tiles [BN][64] (128 bytes a row), then as many (X [BM][64] bf16, W8
+// [BN][64] int8) ring stages as fit in about 200 KB, at most 6 (3 at
+// 128 x 256, 4 at 128 x 176 or 192, 6 at 128 x 128).
+__host__ __device__ constexpr int gemm_i8_stages(int BM, int BN) {
+  return (200 * 1024 - (3 * BN + 8) * kRowBytes) / (BM * kRowBytes + BN * kBK) < 6
+             ? (200 * 1024 - (3 * BN + 8) * kRowBytes) / (BM * kRowBytes + BN * kBK)
+             : 6;
+}
+
+__host__ __device__ constexpr size_t gemm_i8_smem_bytes(int BM, int BN) {
+  return 1024 + (3 * (size_t)BN + 8) * kRowBytes
+         + (size_t)gemm_i8_stages(BM, BN) * (BM * kRowBytes + BN * kBK + 16);
+}
+
+// d[4] (+)= A(64x16) · B(16x8), the layout of the first eight columns of
+// the wider products.
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// out[M, N] = round(sc[n]·acc[m, n] − (sc[n]·zp[n])·rowsum(X)[m] (+ bias[n]))
+// with acc = X[M, K] · W8[N, K]ᵀ over the raw codes, in f32. It is gemm_nt
+// with two changes:
+//   * W arrives as int8 codes: the producer loads each stage's [BN][64]
+//     codes by TMA (no swizzle, 64-byte rows) next to X's bf16 stage, and
+//     the consumer warpgroups convert them (`Cvt`: 16 codes to two 16-byte
+//     chunks of bf16, exact) into a bf16 tile in the layout TMA's 128-byte
+//     swizzle would give (16-byte chunk c of row n at chunk c ^ (n % 8)), so
+//     the wgmma descriptors are gemm_nt's; a proxy fence makes the stores
+//     visible to wgmma. One conversion serves all BM rows of X. The
+//     converted tiles rotate over three buffers: the conversion of step
+//     k + 1 overlaps the products of step k, and the products of step k − 2
+//     (the last reader of its buffer) are done in both warpgroups once both
+//     have passed step k's barrier.
+//   * rowsum(X) in f32 comes from the tensor cores: beside each 64-row
+//     product a 64 x 8 one against a tile of ones, whose every column is the
+//     row sum, in the rows the thread's epilogue writes. The epilogue
+//     applies the per-column scale and zero point after the whole K sum,
+//     then the bias, and rounds once.
+// TMA fills X and W8 past M, N and K with zeros, so ragged edges add 0 to
+// acc and to the row sums.
+template <int NC, int BN, typename Cvt>
+__global__ void __launch_bounds__(NC * 128 + 32)
+gemm_nt_i8(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w8,
+           bf16* __restrict__ out, const float* __restrict__ sc, const float* __restrict__ zp,
+           const bf16* __restrict__ bias, int M, int N, int K) {
+  constexpr int BM = 64 * NC, S = gemm_i8_stages(64 * NC, BN), NT = NC * 128;
+  extern __shared__ __align__(128) unsigned char gemm_i8_smem[];
+  unsigned char* base = align1024(gemm_i8_smem);
+  bf16* wb = reinterpret_cast<bf16*>(base);                      // [3][BN][64]
+  bf16* ones = wb + 3 * (size_t)BN * kBK;                        // [8][64]
+  bf16* xs = ones + 8 * kBK;                                     // [S][BM][64]
+  uint8_t* w8 = reinterpret_cast<uint8_t*>(xs + (size_t)S * BM * kBK);  // [S][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(w8 + (size_t)S * BN * kBK);
+  uint64_t* empty = full + S;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = (K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+
+  for (int i = threadIdx.x; i < 8 * kBK; i += blockDim.x) ones[i] = __float2bfloat16_rn(1.f);
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // producer warp
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % S;
+        if (kt >= S) mbar_wait(&empty[s], ((kt / S) - 1) & 1);
+        mbar_expect_tx(&full[s], BM * kRowBytes + BN * kBK);
+        tma_load_2d(xs + (size_t)s * BM * kBK, &map_x, kt * kBK, m0, &full[s]);
+        tma_load_2d(w8 + (size_t)s * BN * kBK, &map_w8, kt * kBK, n0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const uint64_t d1 = desc_sw128(ones);
+  float acc[BN / 2];  // written first by the kt = 0 products
+  float rsa[4];       // rowsum(X) of the thread's rows, in every column
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    const uint8_t* src = w8 + (size_t)s * BN * kBK;
+    bf16* dst = wb + (size_t)(kt % 3) * BN * kBK;
+#pragma unroll
+    for (int i = threadIdx.x; i < BN * 4; i += NT) {  // 16 codes: row i / 4, columns 16·(i % 4)..
+      const int n = i / 4, c = i % 4;
+      uint4 lo, hi;
+      Cvt()(*reinterpret_cast<const uint4*>(src + n * kBK + c * 16), lo, hi);
+      *reinterpret_cast<uint4*>(dst + n * kBK + (((2 * c) ^ (n % 8)) * 8)) = lo;
+      *reinterpret_cast<uint4*>(dst + n * kBK + (((2 * c + 1) ^ (n % 8)) * 8)) = hi;
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+    wgmma_fence();
+    const uint64_t da = desc_sw128(xs + ((size_t)s * BM + wg * 64) * kBK);
+    const uint64_t db = desc_sw128(dst);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_k16<BN>(acc, desc_k(da, kk), desc_k(db, kk), kt > 0 || kk > 0);
+      wgmma_m64n8k16(rsa, desc_k(da, kk), desc_k(d1, kk), kt > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done with their stage
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  fence_operands(rsa);
+
+  // Epilogue: scale, zero point, bias in f32, one rounding, then out through
+  // shared memory (the converted tiles are free once both warpgroups are
+  // past their last products), so that each row leaves in 16-byte stores.
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+  constexpr int LD = BN + 8;
+  bf16* cs = reinterpret_cast<bf16*>(base) + (size_t)wg * 64 * LD;
+  const int warp = (threadIdx.x % 128) / 32;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    float s0 = 0.f, s1 = 0.f, z0 = 0.f, z1 = 0.f, b0 = 0.f, b1 = 0.f;
+    if (n0 + c < N) {
+      s0 = sc[n0 + c];
+      z0 = s0 * zp[n0 + c];
+      if (bias != nullptr) b0 = __bfloat162float(bias[n0 + c]);
+    }
+    if (n0 + c + 1 < N) {
+      s1 = sc[n0 + c + 1];
+      z1 = s1 * zp[n0 + c + 1];
+      if (bias != nullptr) b1 = __bfloat162float(bias[n0 + c + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + lane / 4 + 8 * h;
+      const float xsum = rsa[2 * h];
+      *reinterpret_cast<__nv_bfloat162*>(cs + r * LD + c) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * h] * s0 - xsum * z0 + b0, acc[4 * j + 2 * h + 1] * s1 - xsum * z1 + b1);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+  const bool vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = threadIdx.x % 128; i < 64 * (BN / 8); i += 128) {
+    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    const int m = m0 + wg * 64 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const bf16* srcp = cs + r * LD + c;
+    bf16* dstp = out + (size_t)m * N + n;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dstp) = *reinterpret_cast<const uint4*>(srcp);
+    } else {
+      for (int e = 0; e < 8 && n + e < N; ++e) dstp[e] = srcp[e];
+    }
+  }
+}
+
+template <int NC, int BN, typename Cvt>
+cudaError_t launch_gemm_i8_tile(const CUtensorMap& mx, const CUtensorMap& mw, bf16* out,
+                                const float* sc, const float* zp, const bf16* bias, int M, int N,
+                                int K, cudaStream_t stream) {
+  const size_t bytes = gemm_i8_smem_bytes(64 * NC, BN);
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt_i8<NC, BN, Cvt>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN);
+  gemm_nt_i8<NC, BN, Cvt><<<grid, NC * 128 + 32, bytes, stream>>>(mx, mw, out, sc, zp, bias, M,
+                                                                  N, K);
+  return cudaGetLastError();
+}
+
+// Launch gemm_nt_i8 on `stream` with gemm_nt's tile choice: X [M, K] bf16
+// (K a multiple of 8), W8 [N, K] int8 codes in rows `ldw` bytes apart (a
+// multiple of 16), sc/zp [N] f32, bias [N] or null; both base pointers
+// 16-byte aligned.
+template <typename Cvt>
+cudaError_t launch_gemm_nt_i8(const bf16* X, const uint8_t* W8, int ldw, bf16* out,
+                              const float* sc, const float* zp, const bf16* bias, int M, int N,
+                              int K, cudaStream_t stream) {
+  const int NC = M >= 128 ? 2 : 1;
+  const int BN = gemm_tile_n(M, N, 64 * NC);
+  CUtensorMap mx, mw;
+  cudaError_t err = encode_rows(&mx, X, M, K, 64 * NC);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldw};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)BN};
+  err = encode_map(&mw, 2, W8, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  switch (NC * 1000 + BN) {
+    case 2256: return launch_gemm_i8_tile<2, 256, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 2192: return launch_gemm_i8_tile<2, 192, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 2176: return launch_gemm_i8_tile<2, 176, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 2128: return launch_gemm_i8_tile<2, 128, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 1256: return launch_gemm_i8_tile<1, 256, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 1192: return launch_gemm_i8_tile<1, 192, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    case 1176: return launch_gemm_i8_tile<1, 176, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
+    default: return launch_gemm_i8_tile<1, 128, Cvt>(mx, mw, out, sc, zp, bias, M, N, K, stream);
   }
 }
 

@@ -173,8 +173,7 @@ int launch(const float* q, const void* k_pool, const void* v_pool, const int* pt
       ws_ml, H, KV, P, MP, SV, v_latent, scale, softcap, sliding);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_splits<<<dim3(KV, B), kThreads, 0, stream>>>(ws, ws_ml, out, H, KV, NS, SV);
-  return (int)cudaGetLastError();
+  return (int)launch_combine(ws, ws_ml, out, B, H, KV, NS, SV, stream);
 }
 
 template <typename T>

@@ -18,30 +18,46 @@
 // elements read: about KV·hd FLOP per byte in bf16, far above the ~295
 // FLOP/byte ridge at MHA (KV·hd = 4096); at GQA still above it.
 //
-// Design: kernel 2's tile body (flash_decode.cuh) with a page table, and the
-// keys of a row split over blocks (flash-decoding). Grid (KV group, row,
-// 128-key chunk): a block walks its chunk's live keys in 32-key tiles, from
-// the tile holding positions[b] − sliding + 1 (or 0), and leaves its running
-// max, denominator and numerator in a workspace; a second launch combines a
-// head's chunks (unsplit, the 1024-key rows' 32 tiles ran as one serial
-// chain on one SM: 1.85 ms at the smoke's shapes, H100 at 700 W; 0.97 ms split). The
-// block stages its row of the page table in shared memory once; before each
-// tile, 32 threads resolve the tile's keys through it into the shared row
-// tables, one lookup per key, so any page size works (the tests use P = 8
-// and 16; the engine's automatic page at 7B width in bf16 is 256) and a tile
-// may straddle pages. Pages past positions[b] / P are never read. A slot
-// with no request (page table all 0, position 0) reads key 0 of the scratch
-// page 0 and gives finite values, which the engine ignores. The TPU
-// kernel's clamp of trailing logical pages to the last live page (a pipeline
-// trick that skips their copies) has no counterpart: the loop ends at the
-// row's last key. Known costs are kernel 2's: the KV blocks of a row each
-// read its latent rows (from L2 after the first), every tile re-reads A_k[g]
-// from L2, 255 registers (one block per SM) with a small spill.
+// Forms, chosen by the wrapper (`ops/paged_attention.py::_latent_form`):
+//   * "split_wgmma" (bf16, hd 64 or 128, Rk and Rv multiples of 8, 16-byte
+//     aligned pools and A_k, page size P a power of two of at least 8):
+//     kernel 2's split tile (latent_split.cuh) on the page pools. One block
+//     per (128-key chunk, KV group, row), MP·P/128 chunks a row whatever
+//     the positions (they live on the device, and paged_decode_scan runs
+//     steps with no host sync between them): a block whose chunk holds no
+//     key of [positions[b] − sliding + 1, positions[b]] marks its chunk
+//     empty and exits. The block stages its row of the page table in shared
+//     memory; the producer lane reads the page ids from there and loads the
+//     chunk's latent rows through a 3-D tensor map over the pool (column,
+//     row in page, page id): for P >= 128 one box of 128 rows of one page
+//     (a chunk never straddles a page), for P < 128 128/P boxes of P rows,
+//     each from its own page into consecutive rows of the stage, all on one
+//     barrier. Boxes of 8 or more rows start on 1024-byte boundaries, so the
+//     128-byte swizzle of the stage is that of one big box. A box of a
+//     logical page outside the row's live pages loads the nearest live page
+//     instead (the TPU kernel's clamp of trailing pages): its keys are
+//     masked and its rows finite. A_k[g] is read once per 128 keys, K stays
+//     in f32 registers (RoPE with the cos/sin row of the logical position,
+//     q·K on the accumulators), T(p)·tv runs on mma.sync.
+//   * "tile32" (f32, other head dims, unaligned ranks, other page sizes):
+//     kernel 2's 32-key tile body (flash_decode.cuh) with a page table: a
+//     block walks its chunk's live keys in 32-key tiles, each tile's keys
+//     resolved through the staged page row into the shared row tables, one
+//     lookup per key, so any page size works and a tile may straddle pages;
+//     the up-projection on WMMA with one Rk chunk in flight, A_k[g] re-read
+//     from L2 every tile, 255 registers.
+// Both leave each chunk's running max, denominator and numerator in a
+// workspace that a second launch (flash_decode::combine_chunks) merges.
+// Pages past positions[b] / P are never read by tile32; split_wgmma reads
+// the rows of a live chunk's pages past positions[b] (masked, p = 0), which
+// must be finite, as the engine's pools are. A slot with no request (page
+// table all 0, position 0) reads key 0 of the scratch page 0 and gives
+// finite values, which the engine ignores.
 //
 // Page ids must lie in [0, NP) and positions in [0, MP·P): the engine
 // guarantees both, and the kernel does not check them.
 
-#include "flash_decode.cuh"
+#include "latent_split.cuh"
 
 namespace {
 
@@ -127,8 +143,7 @@ int launch(const float* q, const void* tk, const void* tv, const void* a_k, cons
       cos_t, sin_t, pt, positions, ws, ws_ml, H, KV, P, MP, Rk, Rv, scale, softcap, sliding);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_splits<<<dim3(KV, B), kThreads, 0, stream>>>(ws, ws_ml, out, H, KV, NS, Rv);
-  return (int)cudaGetLastError();
+  return (int)launch_combine(ws, ws_ml, out, B, H, KV, NS, Rv, stream);
 }
 
 template <typename T>
@@ -150,12 +165,116 @@ int dispatch_hd(int HD, const float* q, const void* tk, const void* tv, const vo
   }
 }
 
+// ---- the split form ("split_wgmma") -----------------------------------------
+
+namespace ls = latent_split;
+static_assert(ls::kChunk == kSplit, "one workspace layout for both forms");
+
+// Block (chunk j, group g, row b): kernel 2's split tile over the keys
+// [128j, 128j + 128) of row b, their latent rows gathered from the pools by
+// page; ws_ml [B, KV, NS, rep, 2] and ws_s [B, KV, NS, rep, Rv] as kernel 2.
+template <int HD>
+__global__ void __launch_bounds__(ls::kThreads, 1)
+paged_latent_split_kernel(const __grid_constant__ CUtensorMap map_tk,
+                          const __grid_constant__ CUtensorMap map_ak,
+                          const __grid_constant__ CUtensorMap map_tv,
+                          const float* __restrict__ q, const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t, const int* __restrict__ page_table,
+                          const int* __restrict__ positions, float* __restrict__ ws_s,
+                          float* __restrict__ ws_ml, int H, int KV, int P, int MP, int Rk, int Rv,
+                          float scale, float softcap, int sliding) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int rep = H / KV;
+  const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const size_t split = ((size_t)b * KV + g) * gridDim.x + j;
+  const int pos = positions[b];
+  const int t_lo = sliding > 0 ? max(0, pos - sliding + 1) : 0;
+  const int c0 = j * ls::kChunk;
+  if (c0 > pos || c0 + ls::kChunk <= t_lo) {  // no live key in this chunk
+    mark_empty_split(ws_ml + split * rep * 2, rep);
+    return;
+  }
+  const ls::Smem s = ls::carve(smem_raw, HD, rep);
+  int* pts = reinterpret_cast<int*>(s.tail);  // [MP] the row's page ids
+  for (int i = threadIdx.x; i < MP; i += ls::kThreads) pts[i] = page_table[(size_t)b * MP + i];
+  ls::setup(s, q + ((size_t)b * H + (size_t)g * rep) * HD, HD, rep);
+  __syncthreads();
+  const int KT = (Rk + sm90::kBK - 1) / sm90::kBK;
+  const int VT = (Rv + sm90::kBK - 1) / sm90::kBK;
+  if (threadIdx.x >= ls::kConsumers) {  // the producer warp
+    if (threadIdx.x == ls::kConsumers) {
+      // logical pages outside [lo, hi] hold no live key: their boxes load
+      // the nearest live page (masked keys, finite rows)
+      const int lo = t_lo / P, hi = pos / P;
+      ls::produce<HD>(s, &map_tk, &map_ak, &map_tv, g, KT, VT,
+                      [&](__nv_bfloat16* dst, const CUtensorMap* map, int col, uint64_t* bar) {
+                        if (P >= ls::kChunk) {
+                          sm90::tma_load_3d(dst, map, col, c0 % P, pts[c0 / P], bar);
+                          return;
+                        }
+                        for (int i = 0; i < ls::kChunk / P; ++i) {
+                          const int lp = min(max(c0 / P + i, lo), hi);
+                          sm90::tma_load_3d(dst + (size_t)i * P * sm90::kBK, map, col, 0,
+                                            pts[lp], bar);
+                        }
+                      });
+    }
+    return;
+  }
+  ls::consume<HD>(s, cos_t, sin_t, MP * P, c0, t_lo, pos + 1, Rv, rep, KT, VT, scale, softcap,
+                  ws_s + split * rep * Rv, ws_ml + split * rep * 2);
+}
+
+size_t split_smem_bytes(int HD, int rep, int MP) {
+  return ls::tail_offset(HD, rep) + 4 * (size_t)MP;
+}
+
+// A 3-D map over a pool [NP, P, R] bf16: (column, row in page, page), boxes
+// of 64 columns and min(P, 128) rows of one page.
+cudaError_t encode_pool(CUtensorMap* map, const void* pool, int NP, int P, int R) {
+  const cuuint64_t dims[3] = {(cuuint64_t)R, (cuuint64_t)P, (cuuint64_t)NP};
+  const cuuint64_t strides[2] = {(cuuint64_t)R * 2, (cuuint64_t)P * R * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)sm90::kBK,
+                             (cuuint32_t)(P < ls::kChunk ? P : ls::kChunk), 1};
+  return sm90::encode_map(map, 3, pool, dims, strides, box);
+}
+
+template <int HD>
+int launch_split(const float* q, const void* tk, const void* tv, const void* a_k,
+                 const float* cos_t, const float* sin_t, const int* pt, const int* positions,
+                 float* ws, float* out, int B, int H, int KV, int NP, int P, int MP, int Rk,
+                 int Rv, float scale, float softcap, int sliding, cudaStream_t stream) {
+  if (Rk % 8 != 0 || Rv % 8 != 0 || P < 8 || (P & (P - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_tk, map_ak, map_tv;
+  cudaError_t err = encode_pool(&map_tk, tk, NP, P, Rk);
+  if (err != cudaSuccess) return (int)err;
+  err = encode_pool(&map_tv, tv, NP, P, Rv);
+  if (err != cudaSuccess) return (int)err;
+  err = sm90::encode_rows(&map_ak, a_k, KV * HD, Rk, HD);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = split_smem_bytes(HD, H / KV, MP);
+  auto kernel = paged_latent_split_kernel<HD>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int NS = n_splits(MP, P);
+  float* ws_ml = ws + (size_t)B * H * NS * Rv;
+  kernel<<<dim3(NS, KV, B), ls::kThreads, bytes, stream>>>(
+      map_tk, map_ak, map_tv, q, cos_t, sin_t, pt, positions, ws, ws_ml, H, KV, P, MP, Rk, Rv,
+      scale, softcap, sliding);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_combine(ws, ws_ml, out, B, H, KV, NS, Rv, stream);
+}
+
 }  // namespace
 
-// Shared memory (bytes) one block needs; the wrapper refuses shapes above
-// the 232,448-byte opt-in limit before launching.
-extern "C" long long paged_latent_attention_smem_bytes(int head_dim, int rep, int Rv, int MP) {
-  return (long long)smem_bytes(head_dim, rep, Rv, MP);
+// Shared memory (bytes) one block of a form needs; the wrapper refuses
+// shapes above the 232,448-byte opt-in limit before launching.
+extern "C" long long paged_latent_attention_smem_bytes(int head_dim, int rep, int Rv, int MP,
+                                                       int form) {
+  return (long long)(form == 1 ? split_smem_bytes(head_dim, rep, MP)
+                               : smem_bytes(head_dim, rep, Rv, MP));
 }
 
 // f32 elements of the workspace a launch needs (the chunks' partial sums).
@@ -164,17 +283,20 @@ extern "C" long long paged_latent_attention_workspace(int B, int H, int KV, int 
   return (long long)B * H * n_splits(MP, P) * (Rv + 2);
 }
 
-// q [B,H,HD] f32; tk_pool, tv_pool, a_k of `dtype` (0 = float32,
-// 1 = bfloat16); cos/sin [MP·P, HD] f32; page_table [B, MP] and positions [B]
-// int32; ws the f32 workspace; out [B, H, Rv] f32. Two launches on `stream`:
-// the chunks, then their combination. Returns cudaGetLastError() (0 = success).
+// q [B,H,HD] f32; tk_pool [NP,P,Rk], tv_pool [NP,P,Rv], a_k of `dtype`
+// (0 = float32, 1 = bfloat16); cos/sin [MP·P, HD] f32; page_table [B, MP]
+// and positions [B] int32; ws the f32 workspace; out [B, H, Rv] f32. form:
+// 0 = "tile32", 1 = "split_wgmma" (bf16, HD 64 or 128, Rk and Rv multiples
+// of 8, P a power of two >= 8). Two launches on `stream`: the chunks, then
+// their combination. Returns cudaGetLastError() (0 = success),
+// cudaErrorInvalidValue for a form the shape does not allow.
 extern "C" int paged_latent_attention_launch(const void* q, const void* tk_pool,
                                              const void* tv_pool, const void* a_k,
                                              const void* cos_t, const void* sin_t,
                                              const void* page_table, const void* positions,
                                              void* ws, void* out, int B, int H, int KV, int HD,
-                                             int P, int MP, int Rk, int Rv, float scale,
-                                             float softcap, int sliding, int dtype,
+                                             int NP, int P, int MP, int Rk, int Rv, float scale,
+                                             float softcap, int sliding, int dtype, int form,
                                              void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > kMaxRep || P <= 0 || MP <= 0)
     return (int)cudaErrorInvalidValue;
@@ -186,6 +308,17 @@ extern "C" int paged_latent_attention_launch(const void* q, const void* tk_pool,
   const int* pos = static_cast<const int*>(positions);
   float* w = static_cast<float*>(ws);
   float* o = static_cast<float*>(out);
+  if (form == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (HD == 64)
+      return launch_split<64>(qf, tk_pool, tv_pool, a_k, c, s, pt, pos, w, o, B, H, KV, NP, P,
+                              MP, Rk, Rv, scale, softcap, sliding, st);
+    if (HD == 128)
+      return launch_split<128>(qf, tk_pool, tv_pool, a_k, c, s, pt, pos, w, o, B, H, KV, NP, P,
+                               MP, Rk, Rv, scale, softcap, sliding, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_hd<float>(HD, qf, tk_pool, tv_pool, a_k, c, s, pt, pos, w, o, B, H, KV, P,
                               MP, Rk, Rv, scale, softcap, sliding, st);

@@ -19,6 +19,9 @@ is dequantize + two plain matmuls (what the JAX package runs there and on
 the CPU). At or below it, a CUDA tensor launches the kernel or raises, and
 a CPU tensor takes the plain version. True dims come from the scales, so
 code arrays may arrive padded (as the JAX serving engine pre-pads them).
+``_form_q8`` names, from the shape, the form of kernel 3 a call runs (the
+header of its CUDA source describes each); ``fused_lowrank_q8_tiled_model``
+is the plain version of the arithmetic of its "wgmma_tiled" form.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from asvd4llm_tpu_torch.ops import _build
 from asvd4llm_tpu_torch.ops.fused_lowrank import (
-    _DTYPE_CODES, MAX_FUSED_TOKENS, fused_lowrank_reference,
+    _DTYPE_CODES, _FORM_CODES, _SKINNY_MAX_M, MAX_FUSED_TOKENS, fused_lowrank_reference,
 )
 from asvd4llm_tpu_torch.ops.lowrank import lowrank_apply
 from asvd4llm_tpu_torch.ops.quant import (
@@ -61,9 +64,10 @@ def _check(kind, x2, tensors, dtypes):
             raise ValueError(f"{kind}: {nm} is not contiguous")
 
 
-def _launch(name, x2, tensors, ints, N, R):
+def _launch(name, x2, tensors, ints, N, R, split_k=True):
     """Launch csrc/<name>.cu's entry point on `tensors` (pointers; None is a
-    null pointer) and `ints`; returns y [M, N]."""
+    null pointer) and `ints`; returns y [M, N]. `split_k`: the form sums
+    over K in an f32 scratch."""
     M = x2.shape[0]
     lib = _build.library(name)
     fn = getattr(lib, f"{name}_launch")
@@ -73,7 +77,8 @@ def _launch(name, x2, tensors, ints, N, R):
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     # f32 split-K sums of t [M, R] and y [M, N] (+ two row-sum vectors),
     # zeroed by the launcher; t rounded to the io dtype for stage 2
-    scratch = torch.empty((M * (R + N + 2),), dtype=torch.float32, device=x2.device)
+    scratch = torch.empty((M * (R + N + 2) if split_k else 0,), dtype=torch.float32,
+                          device=x2.device)
     t = torch.empty((M, R), dtype=x2.dtype, device=x2.device)
     ptrs = [None if a is None else a.data_ptr() for a in (*tensors, y, scratch, t)]
     with torch.cuda.device(x2.device):
@@ -84,6 +89,42 @@ def _launch(name, x2, tensors, ints, N, R):
 
 
 # ------------------------------------------------------------------ q8 ----
+
+def _form_q8(M: int, K: int, R: int, ldb: int, lda: int, dtype: torch.dtype,
+             aligned: bool = True) -> str:
+    """The kernel form a call of kernel 3 runs: "wgmma_tiled" (bf16,
+    M > 16, K and R multiples of 8, code rows 16-byte aligned: ldb and lda
+    multiples of 16), "mma_skinny" (bf16, M <= 16), "wmma_tiled" (bf16,
+    M > 16, the other ranks and code rows), or "cuda_cores" (f32, or bf16
+    with K or ldb not a multiple of 16, or operands not 16-byte aligned)."""
+    if dtype != torch.bfloat16 or K % 16 or ldb % 16 or not aligned:
+        return "cuda_cores"
+    if M <= _SKINNY_MAX_M:
+        return "mma_skinny"
+    return "wgmma_tiled" if R % 8 == 0 and lda % 16 == 0 else "wmma_tiled"
+
+
+def fused_lowrank_q8_tiled_model(x2: torch.Tensor, a8, asc, azp, b8, bsc, bzp,
+                                 bias: Optional[torch.Tensor], bk: int = 64) -> torch.Tensor:
+    """The arithmetic of the "wgmma_tiled" form in plain PyTorch: products
+    of raw codes summed in f32; rowsum(x) in f32, stage by stage of 64
+    columns as the kernel streams x; t = T(bsc·acc − (bsc·bzp)·rowsum(x))
+    rounded once; rowsum(t) of the rounded t the same way;
+    y = T(asc·(t·A8ᵀ) − (asc·azp)·rowsum(t) + bias)."""
+    N, R, K = asc.shape[0], bsc.shape[0], x2.shape[1]
+    asc, azp, bsc, bzp = (v.reshape(-1).float() for v in (asc, azp, bsc, bzp))
+
+    def stage_sums(v):
+        return sum(v[:, k:k + bk].float().sum(dim=1) for k in range(0, v.shape[1], bk))
+
+    acc = torch.matmul(x2.float(), b8[:R, :K].float().t())
+    t = (acc * bsc - stage_sums(x2)[:, None] * (bsc * bzp)).to(x2.dtype)
+    y = torch.matmul(t.float(), a8[:N, :R].float().t())
+    y = y * asc - stage_sums(t)[:, None] * (asc * azp)
+    if bias is not None:
+        y = y + bias.to(x2.dtype).float()
+    return y.to(x2.dtype)
+
 
 def fused_lowrank_q8_reference(x2: torch.Tensor, a8, asc, azp, b8, bsc, bzp,
                                bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -99,7 +140,10 @@ def fused_lowrank_q8_reference(x2: torch.Tensor, a8, asc, azp, b8, bsc, bzp,
     return y.to(x2.dtype)
 
 
-def _launch_q8(x2, a8, asc, azp, b8, bsc, bzp, bias):
+def _launch_q8(x2, a8, asc, azp, b8, bsc, bzp, bias, form=None):
+    """Launch kernel 3 in the form `_form_q8` names; `form` (measurements
+    only) names another, which the launcher refuses where the shape does
+    not allow it."""
     M, K = x2.shape
     N, R = asc.shape[0], bsc.shape[0]
     f32, i8 = torch.float32, torch.int8
@@ -114,9 +158,16 @@ def _launch_q8(x2, a8, asc, azp, b8, bsc, bzp, bias):
         raise ValueError(f"fused_lowrank_q8: shapes x {tuple(x2.shape)}, a8 "
                          f"{tuple(a8.shape)}, b8 {tuple(b8.shape)}, N {N}, R {R}, bias "
                          f"{None if bias is None else tuple(bias.shape)}")
+    ldb, lda = b8.shape[1], a8.shape[1]
+    form = form or _form_q8(M, K, R, ldb, lda, x2.dtype,
+                            all(t.data_ptr() % 16 == 0 for t in (x2, a8, b8)))
+    code = _FORM_CODES.get(form, 0)
     y = _launch("fused_lowrank_q8", x2, (x2, b8, bsc, bzp, a8, asc, azp, bias),
-                (M, K, R, N, b8.shape[1], a8.shape[1]), N, R)
-    fused_lowrank_apply_q8.launches += 1
+                (M, K, R, N, ldb, lda, code), N, R, split_k=code == 0)
+    counter = fused_lowrank_apply_q8
+    counter.launches += 1
+    counter.last_form = form
+    counter.form_launches[form] = counter.form_launches.get(form, 0) + 1
     return y
 
 
@@ -216,6 +267,9 @@ def fused_lowrank_apply_q4(x: torch.Tensor, a4, asc, azs, b4, bsc, bzs,
 
 
 # launches of each CUDA kernel in this process (the plain versions and the
-# large-M matmul path do not count)
+# large-M matmul path do not count); for kernel 3 also the form of the last
+# launch and the launches by form
 fused_lowrank_apply_q8.launches = 0
+fused_lowrank_apply_q8.last_form = None
+fused_lowrank_apply_q8.form_launches = {}
 fused_lowrank_apply_q4.launches = 0

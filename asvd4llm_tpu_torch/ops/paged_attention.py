@@ -17,12 +17,17 @@ over the keys t ≤ positions[b] (and inside the sliding window):
   s_h       Σ_t p_t (rounded to the pool's dtype) · V_t / Σ_t p_t, f32
 
 The kernels are hand-written CUDA (``csrc/paged_dense_attention.cu``,
-``csrc/paged_latent_attention.cu``, sharing the tile body of kernel 2 in
-``csrc/flash_decode.cuh``); each call is two launches, the row's keys split
-into 128-key chunks over blocks and then the chunks combined, with a
-workspace the wrapper allocates. ``paged_dense_reference`` and
-``paged_latent_reference`` are their plain PyTorch versions with the same
-casts, and a CPU tensor takes them. The query enters in f32 (the JAX kernels
+``csrc/paged_latent_attention.cu``); each call is two launches, the row's
+keys split into 128-key chunks over blocks and then the chunks combined,
+with a workspace the wrapper allocates. Kernel 6 has two forms, named by
+``_latent_form`` from the shape: "split_wgmma" (kernel 2's split tile,
+``csrc/latent_split.cuh``, its chunk rows loaded by page in TMA boxes that
+``split_boxes`` describes) and "tile32" (kernel 2's 32-key tile body in
+``csrc/flash_decode.cuh``, which kernel 5 uses too).
+``paged_dense_reference`` and ``paged_latent_reference`` are the plain
+PyTorch versions with the same casts, and a CPU tensor takes them;
+``paged_latent_split_reference`` is the plain version of what the split
+form computes per chunk. The query enters in f32 (the JAX kernels
 cast it to f32 too), so pools of another dtype than the model compute what
 the JAX package computes. Page ids must lie in the pool and positions below
 ``MP·P``; the engine guarantees both.
@@ -37,8 +42,42 @@ import torch
 
 from asvd4llm_tpu_torch.ops import _build
 from asvd4llm_tpu_torch.ops.latent_attention import (
-    _DTYPE_CODES, _HEAD_DIMS, _MAX_REP, _MAX_SMEM, _rotate_half,
+    _DTYPE_CODES, _FORM_CODES, _HEAD_DIMS, _MAX_REP, _MAX_SMEM, _SPLIT_HEAD_DIMS, SPLIT_KEYS,
+    _rotate_half,
 )
+
+
+def _latent_form(dtype: torch.dtype, hd: int, Rk: int, Rv: int, P: int,
+                 aligned: bool = True) -> str:
+    """The kernel form a call of kernel 6 runs: "split_wgmma" (bf16, head
+    dim 64 or 128, Rk and Rv multiples of 8, 16-byte aligned pools and A_k,
+    page size a power of two of at least 8), else "tile32"."""
+    if (dtype == torch.bfloat16 and hd in _SPLIT_HEAD_DIMS and Rk % 8 == 0
+            and Rv % 8 == 0 and P >= 8 and P & (P - 1) == 0 and aligned):
+        return "split_wgmma"
+    return "tile32"
+
+
+def split_boxes(P: int, MP: int, pos: int, sliding: int, chunk: int = SPLIT_KEYS):
+    """The split form's loads for one row, as its producer issues them:
+    {chunk j: [(first stage row, rows, logical page loaded, row in page)]}
+    for every chunk of the row's MP·P keys that holds a live key of
+    [pos − sliding + 1, pos]; the other chunks are marked empty. P >= chunk:
+    one box of `chunk` rows inside one page; P < chunk: chunk / P boxes of P
+    rows, a logical page outside the live ones clamped to the nearest live
+    page (its keys are masked)."""
+    t_lo = max(0, pos - sliding + 1) if sliding > 0 else 0
+    lo, hi = t_lo // P, pos // P
+    out = {}
+    for j in range(-(-MP * P // chunk)):
+        c0 = j * chunk
+        if c0 > pos or c0 + chunk <= t_lo:
+            continue
+        if P >= chunk:
+            out[j] = [(0, chunk, c0 // P, c0 % P)]
+        else:
+            out[j] = [(i * P, P, min(max(c0 // P + i, lo), hi), 0) for i in range(chunk // P)]
+    return out
 
 
 def _flat_rows(pool, page_table):
@@ -103,6 +142,53 @@ def paged_latent_reference(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full,
                             softcap=softcap, sliding=sliding)
 
 
+def paged_latent_split_reference(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full,
+                                 page_table, positions, *, scale, softcap, sliding,
+                                 kv_heads, chunk=SPLIT_KEYS):
+    """Plain version of the split form: each row's latent rows loaded as
+    ``split_boxes`` loads them, chunk by chunk; per chunk and head the max
+    m_j of the masked logits, den_j = Σ p and s_j = Σ T(p)·tv with
+    p = exp(l − m_j) rounded to the pool's type for s only; then
+    out = Σ_j e^(m_j − M)·s_j / Σ_j e^(m_j − M)·den_j over the live chunks,
+    M their largest m_j. -> s [B, H, Rv] f32."""
+    B, H, hd = q_rot.shape
+    KV, rep = kv_heads, H // kv_heads
+    P, MP = tk_pool.shape[1], page_table.shape[1]
+    Rv = tv_pool.shape[2]
+    qg = q_rot.float().reshape(B, KV, rep, hd)
+    out = torch.empty((B, H, Rv), dtype=torch.float32, device=q_rot.device)
+    for b in range(B):
+        pos = int(positions[b])
+        t_lo = max(0, pos - sliding + 1) if sliding > 0 else 0
+        ms, dens, nums = [], [], []
+        for j, boxes in split_boxes(P, MP, pos, sliding, chunk).items():
+            tk = torch.cat([tk_pool[int(page_table[b, lp]), r0:r0 + n]
+                            for _, n, lp, r0 in boxes]).float()
+            tv = torch.cat([tv_pool[int(page_table[b, lp]), r0:r0 + n]
+                            for _, n, lp, r0 in boxes]).float()
+            t = torch.arange(j * chunk, (j + 1) * chunk, device=q_rot.device)
+            rows = t.clamp(max=cos_full.shape[0] - 1)
+            k = torch.matmul(tk, a_k.float().t()).reshape(chunk, KV, hd)
+            c, s = cos_full[rows].float()[:, None], sin_full[rows].float()[:, None]
+            k = k * c + _rotate_half(k) * s
+            logits = torch.einsum("grd,tgd->grt", qg[b], k) * scale
+            if softcap > 0:
+                logits = softcap * torch.tanh(logits / softcap)
+            live = (t >= t_lo) & (t <= pos)
+            logits = torch.where(live, logits, torch.full_like(logits, -1e30))
+            m = logits.amax(dim=-1)                                  # [KV, rep]
+            p = torch.exp(logits - m[..., None])
+            ms.append(m)
+            dens.append(p.sum(dim=-1))
+            nums.append(torch.einsum("grt,tv->grv", p.to(tv_pool.dtype).float(), tv))
+        m_all = torch.stack(ms)
+        w = torch.exp(m_all - m_all.amax(dim=0))
+        num = (w[..., None] * torch.stack(nums)).sum(dim=0)
+        den = (w * torch.stack(dens)).sum(dim=0)
+        out[b] = (num / den[..., None]).reshape(H, Rv)
+    return out
+
+
 def _check(kind, q_rot, kv_heads, pool_dtype, tensors):
     """Device, dtype, shape and contiguity checks of a launch;
     ``tensors`` maps a name to (tensor, shape, dtype)."""
@@ -136,11 +222,11 @@ def _workspace(kind, lib, B, H, KV, width, P, MP, device):
     return torch.empty((fn(B, H, KV, width, P, MP),), dtype=torch.float32, device=device)
 
 
-def _smem_check(kind, lib, hd, rep, width, MP):
+def _smem_check(kind, lib, hd, rep, width, MP, *form):
     fn = getattr(lib, f"{kind}_smem_bytes")
     fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 4
-    need = fn(hd, rep, width, MP)
+    fn.argtypes = [ctypes.c_int] * (4 + len(form))
+    need = fn(hd, rep, width, MP, *form)
     if need > _MAX_SMEM:
         raise ValueError(f"{kind}: needs {need} bytes of shared memory (rep "
                          f"{rep}, width {width}, {MP} pages a row), over {_MAX_SMEM}")
@@ -182,7 +268,7 @@ def _launch_dense(q_rot, k_pool, v_pool, page_table, positions, *, scale,
 
 
 def _launch_latent(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full, page_table,
-                   positions, *, scale, softcap, sliding, kv_heads):
+                   positions, *, scale, softcap, sliding, kv_heads, form=None):
     kind = "paged_latent_attention"
     B, H, hd = q_rot.shape
     KV = kv_heads
@@ -200,12 +286,14 @@ def _launch_latent(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full, page_table,
         "page_table": (page_table, (B, MP), torch.int32),
         "positions": (positions, (B,), torch.int32)})
     lib = _build.library(kind)
-    _smem_check(kind, lib, hd, H // KV, Rv, MP)
+    form = form or _latent_form(dt, hd, Rk, Rv, P, all(
+        t.data_ptr() % 16 == 0 for t in (tk_pool, tv_pool, a_k)))
+    _smem_check(kind, lib, hd, H // KV, Rv, MP, _FORM_CODES[form])
     ws = _workspace(kind, lib, B, H, KV, Rv, P, MP, q_rot.device)
     fn = lib.paged_latent_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = torch.empty((B, H, Rv), dtype=torch.float32, device=q_rot.device)
     with torch.cuda.device(q_rot.device):
         stream = torch.cuda.current_stream(q_rot.device).cuda_stream
@@ -213,10 +301,13 @@ def _launch_latent(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full, page_table,
                  a_k.data_ptr(), cos_full.data_ptr(), sin_full.data_ptr(),
                  page_table.data_ptr(), positions.data_ptr(), ws.data_ptr(),
                  out.data_ptr(),
-                 B, H, KV, hd, P, MP, Rk, Rv, float(scale), float(softcap),
-                 int(sliding), _DTYPE_CODES[dt], stream)
+                 B, H, KV, hd, NP, P, MP, Rk, Rv, float(scale), float(softcap),
+                 int(sliding), _DTYPE_CODES[dt], _FORM_CODES[form], stream)
     _build.check(lib, kind, err)
-    paged_latent_decode_attention.launches += 1
+    counter = paged_latent_decode_attention
+    counter.launches += 1
+    counter.last_form = form
+    counter.form_launches[form] = counter.form_launches.get(form, 0) + 1
     return out
 
 
@@ -236,14 +327,17 @@ def _paged_dense_core(q_rot, k_pool, v_pool, page_table, positions, *, scale,
 
 def _paged_latent_core(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full,
                        page_table, positions, *, scale, softcap, sliding,
-                       kv_heads):
+                       kv_heads, form=None):
     """q_rot [B, H, hd] (f32 on a CUDA tensor); tk_pool [NP, P, Rk];
     tv_pool [NP, P, Rv]; a_k [KV*hd, Rk]; cos/sin [MP*P, hd] f32;
-    page_table [B, MP], positions [B] int32 -> s [B, H, Rv] f32."""
+    page_table [B, MP], positions [B] int32 -> s [B, H, Rv] f32.
+    `form` (measurements only) runs a named kernel form instead of the one
+    `_latent_form` picks; the launcher refuses one the shape does not
+    allow."""
     kw = dict(scale=scale, softcap=softcap, sliding=sliding, kv_heads=kv_heads)
     if q_rot.device.type == "cuda":
         return _launch_latent(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full,
-                              page_table, positions, **kw)
+                              page_table, positions, form=form, **kw)
     if q_rot.device.type == "cpu":
         return paged_latent_reference(q_rot, tk_pool, tv_pool, a_k, cos_full,
                                       sin_full, page_table, positions, **kw)
@@ -310,6 +404,10 @@ def paged_latent_decode_attention(q_rot, tk_pool, tv_pool, a_k, a_v, cos_full,
     return _up_project_v(s, a_v, v_bias, KV, hd)
 
 
-# launches of the CUDA kernels in this process (the plain versions do not count)
+# launches of the CUDA kernels in this process (the plain versions do not
+# count); for kernel 6 also the form of the last launch and the launches by
+# form
 paged_dense_decode_attention.launches = 0
 paged_latent_decode_attention.launches = 0
+paged_latent_decode_attention.last_form = None
+paged_latent_decode_attention.form_launches = {}

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from asvd4llm_tpu_torch.ops.lowrank import align_ranks
 from asvd4llm_tpu_torch.serving.paged import (
     default_page_size, init_paged_pools, paged_append_batch_select,
     paged_decode_scan, paged_decode_step, pages_needed, prefill_into_pages,
@@ -104,6 +105,11 @@ class PagedEngine:
                      dec.latent, dec.use_pallas, dec.reason)
         self.latent = latent
         self.use_pallas = use_pallas
+        if use_pallas:
+            # ranks zero-padded to the kernels' multiple, as generate does
+            # (exact), so that the latent pools built below take the
+            # tensor-core forms
+            self.params = params = align_ranks(params, spec)
         self.prefill_chunk = int(prefill_chunk)
         self.temperature = float(temperature)
         self.top_p = float(top_p)

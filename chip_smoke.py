@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -164,7 +165,9 @@ class Timer:
         return out
 
 
-NEW_FORM_KERNELS = ("gemm_nt", "latent_split_kernel")  # the wgmma forms of kernels 1, 2
+# the tensor-core forms of kernels 1, 2, 3 and 6 (a longer name first where
+# one contains another)
+NEW_FORM_KERNELS = ("gemm_nt_i8", "gemm_nt", "paged_latent_split_kernel", "latent_split_kernel")
 
 
 def new_form_ptxas(build_logs):
@@ -178,9 +181,9 @@ def new_form_ptxas(build_logs):
                 mangled = ln.split("'")[1] if "'" in ln else ln
                 kernel = next((k for k in NEW_FORM_KERNELS if k in mangled), None)
                 if kernel:
-                    # template arguments as mangled: ILi2ELi128EE -> <2, 128>
-                    args = mangled.split(kernel, 1)[1].split("EE")[0]
-                    kernel += "<" + ", ".join(a for a in args.replace("ILi", "").split("ELi")) + ">"
+                    # integer template arguments as mangled: ILi2ELi128E... -> <2, 128>
+                    args = mangled.split(kernel, 1)[1].split("Ev")[0]
+                    kernel += "<" + ", ".join(re.findall(r"Li(\d+)E", args)) + ">"
                 spill = None
             elif kernel and "spill" in ln:
                 spill = ln.strip()
@@ -204,6 +207,24 @@ def max_err(out, ref):
 def within(out, ref, atol, rtol):
     return bool(((out.float() - ref.float()).abs()
                  <= atol + rtol * ref.float().abs()).all())
+
+
+def old_form_in_turns(torch, timer, new, old, name, ref, k_ms, atol, rtol, failures, label):
+    """An earlier form `old` (named `name`) on the inputs of the form `new`:
+    held against the plain version's `ref`, then timed in turns with the new
+    form (new, old, old, new; the first new time `k_ms` given). -> (new ms,
+    old ms, text for the log line)."""
+    out = old()
+    torch.cuda.synchronize()
+    o_err = max_err(out, ref)[0]
+    o_ok = within(out, ref, atol, rtol) and bool(torch.isfinite(out.float()).all())
+    if not o_ok:
+        failures.append(label)
+    o_ms, o2_ms, k2_ms = timer.ms(old), timer.ms(old), timer.ms(new)
+    text = (f"; form {name} max_abs_err={o_err:.3e} {'ok' if o_ok else 'FAIL'}, in turns"
+            f" new/old/old/new {k_ms * 1e3:.1f}/{o_ms * 1e3:.1f}/{o2_ms * 1e3:.1f}/"
+            f"{k2_ms * 1e3:.1f} us")
+    return (k_ms + k2_ms) / 2, (o_ms + o2_ms) / 2, text
 
 
 # ------------------------------------------------------------------ kernels
@@ -521,6 +542,7 @@ def phase_quant_kernels(torch, timer, record, failures):
     package runs above 1024 tokens) and kernel 1 on the same factors
     dequantized to bf16."""
     from asvd4llm_tpu_torch.ops import fused_lowrank as fl
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
 
     g = torch.Generator(device="cuda").manual_seed(3)
     tol = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
@@ -530,9 +552,11 @@ def phase_quant_kernels(torch, timer, record, failures):
             ("q4", "fused_lowrank_q4", "asvd4llm_tpu/ops/pallas_lowrank.py:371",
              f"packed 4-bit codes, group {Q4_GROUP}, R and K padded to 512")):
         log(f"kernel {name}: y = (x·dq(B)ᵀ)·dq(A)ᵀ + bias ({what}) vs its plain version")
-        keys = ("ms", "plain_ms", "yardstick_ms", "kernel1_ms", "bound_ms", "bytes", "flops")
-        sums = dict.fromkeys(keys, 0.0)
-        err_main = 0.0
+        keys = ("ms", "plain_ms", "yardstick_ms", "kernel1_ms", "bound_ms", "bytes", "flops",
+                "old_ms")
+        sums = {M: dict.fromkeys(keys, 0.0) for M in (DECODE_BATCH, 1024)}
+        err_at = {M: 0.0 for M in (DECODE_BATCH, 1024)}
+        counter = _counted()[name]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = tol[dtype]
             shapes = KERNEL1_SHAPES if dtype == torch.bfloat16 else KERNEL1_SHAPES[:1]
@@ -544,19 +568,22 @@ def phase_quant_kernels(torch, timer, record, failures):
                     bias = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dtype)
                     q = quantize_factors(torch, kind, a.to(dtype), b.to(dtype))
                     out = q_apply(kind, x, q, bias)
+                    form = getattr(counter, "last_form", None)
                     ref = q_reference(kind, x, q, bias)
                     torch.cuda.synchronize()
                     err, med_rel = max_err(out, ref)
                     ok = within(out, ref, atol, rtol)
                     line = (f"  {str(dtype)[6:]:8s} M={M:4d} {lin:9s} N={N} K={K} R={R}"
-                            f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                            + (f" form={form}" if form else "")
+                            + f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
                             f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
                     if not ok:
                         failures.append(f"{name} {dtype} M={M} {lin}")
                     if dtype == torch.bfloat16:
-                        rank = q[2].shape[0] if kind == "q8" else q[3].shape[0]
+                        # operations at the true rank R: the q4 codes' padding to 512
+                        # adds zero rows that the function does not need
                         nbytes = q_bytes(kind, q, M, N, K, x.element_size())
-                        flops = 2 * M * rank * (K + N)
+                        flops = 2 * M * R * (K + N)
                         bms, by = bound(nbytes, flops, dtype)
                         a_dq, b_dq = (v.to(dtype) for v in _dequantized(kind, q, K))
                         k_ms = timer.ms(lambda: q_apply(kind, x, q, bias))
@@ -567,6 +594,15 @@ def phase_quant_kernels(torch, timer, record, failures):
                                  f" dequant+two matmuls {y_ms * 1e3:.1f} us, kernel 1 on bf16"
                                  f" factors {k1_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
                                  f" ({by}: {nbytes / 1e6:.1f} MB)")
+                        o_ms = 0.0
+                        if form == "wgmma_tiled":
+                            args = (x, q[0], q[1].scale, q[1].zero, q[2], q[3].scale,
+                                    q[3].zero, bias)
+                            k_ms, o_ms, text = old_form_in_turns(
+                                torch, timer, lambda: q_apply(kind, x, q, bias),
+                                lambda: fq._launch_q8(*args, form="wmma_tiled"), "wmma_tiled",
+                                ref, k_ms, atol, rtol, failures, f"{name} wmma_tiled M={M} {lin}")
+                            line += text
                         if M == DECODE_BATCH and lin == "q_proj":
                             for label, fn in ((name, lambda: q_apply(kind, x, q, bias)),
                                               ("fused_lowrank", lambda: fl.fused_lowrank_apply(
@@ -574,26 +610,35 @@ def phase_quant_kernels(torch, timer, record, failures):
                                 acts = timer.by_activity(fn)
                                 log(f"  {label} at q_proj M={M}, device us per call by launch: "
                                     + ", ".join(f"{n} {us:.1f}" for n, us in acts.items()))
-                        if M == DECODE_BATCH:
+                        if M in sums:
                             for k_, v_ in zip(keys, (k_ms, p_ms, y_ms, k1_ms, bms, nbytes,
-                                                     flops)):
-                                sums[k_] += v_
-                            err_main = max(err_main, err)
+                                                     flops, o_ms)):
+                                sums[M][k_] += v_
+                            err_at[M] = max(err_at[M], err)
                     log(line)
-        by = "bytes" if sums["bytes"] / HBM_BYTES_PER_S >= \
-            sums["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
-        log(f"  one Llama-2-7B layer's 7 linears at M={DECODE_BATCH} bf16: kernel "
-            f"{sums['ms'] * 1e3:.1f} us, plain {sums['plain_ms'] * 1e3:.1f} us, dequant+two "
-            f"matmuls {sums['yardstick_ms'] * 1e3:.1f} us, kernel 1 on bf16 factors "
-            f"{sums['kernel1_ms'] * 1e3:.1f} us, bound {sums['bound_ms'] * 1e3:.1f} us ({by}: "
-            f"{sums['bytes'] / 1e6:.1f} MB, {sums['flops'] / 1e9:.2f} GFLOP)")
+
+        def q_row(M):
+            sm = sums[M]
+            by = "bytes" if sm["bytes"] / HBM_BYTES_PER_S >= \
+                sm["flops"] / PEAK_FLOPS["torch.bfloat16"] else "operations"
+            log(f"  one Llama-2-7B layer's 7 linears at M={M} bf16: kernel "
+                f"{sm['ms'] * 1e3:.1f} us, plain {sm['plain_ms'] * 1e3:.1f} us, dequant+two "
+                f"matmuls {sm['yardstick_ms'] * 1e3:.1f} us, kernel 1 on bf16 factors "
+                f"{sm['kernel1_ms'] * 1e3:.1f} us, bound {sm['bound_ms'] * 1e3:.1f} us ({by}: "
+                f"{sm['bytes'] / 1e6:.1f} MB, {sm['flops'] / 1e9:.2f} GFLOP), "
+                f"{100 * sm['bound_ms'] / sm['ms']:.1f}% of the bound"
+                + (f"; form wmma_tiled {sm['old_ms'] * 1e3:.1f} us" if sm["old_ms"] else ""))
+            return {"max_abs_err": err_at[M], "ms": sm["ms"], "plain_ms": sm["plain_ms"],
+                    "bound_ms": sm["bound_ms"], "bound_by": by, "library_ms": None,
+                    "yardstick_ms": sm["yardstick_ms"], "kernel1_ms": sm["kernel1_ms"],
+                    "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={M}, bf16"}
+        m1024 = q_row(1024)
+        if kind == "q8":
+            m1024.update(form="wgmma_tiled", wmma_tiled_ms=sums[1024]["old_ms"])
         record[name] = {
             "name": name, "route": "cuda",
             "source": f"asvd4llm_tpu_torch/csrc/{name}.cu", "replaces": tpu_line,
-            "max_abs_err": err_main, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
-            "bound_ms": sums["bound_ms"], "bound_by": by, "library_ms": None,
-            "yardstick_ms": sums["yardstick_ms"], "kernel1_ms": sums["kernel1_ms"],
-            "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={DECODE_BATCH}, bf16",
+            **q_row(DECODE_BATCH), "m1024": m1024,
         }
 
 
@@ -630,7 +675,7 @@ def kernel_counts():
 
 
 def form_counts():
-    """Launches by form of the kernels that have several (1 and 2)."""
+    """Launches by form of the kernels that have several (1, 2, 3 and 6)."""
     return {name: dict(fn.form_launches) for name, fn in _counted().items()
             if hasattr(fn, "form_launches")}
 
@@ -768,6 +813,7 @@ def phase_paged_kernels(torch, timer, record, failures):
                                                   a_k, cos, sin)
             kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
             out = core(*args, **kw)
+            form = pa.paged_latent_decode_attention.last_form if kind == "latent" else None
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
             err, med_rel = max_err(out, ref)
@@ -775,7 +821,8 @@ def phase_paged_kernels(torch, timer, record, failures):
             name = "paged_latent_attention" if kind == "latent" else "paged_dense_attention"
             line = (f"  {str(dtype)[6:]:8s} {name} {label:14s} B={B} H={H} KV={KV} hd={hd}"
                     f" P={PAGE} pool {NP} pages Rk={Rk} Rv={Rv} positions {PAGED_POSITIONS}"
-                    f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
+                    + (f" form={form}" if form else "")
+                    + f" max_abs_err={err:.3e} median_rel={med_rel:.2e}"
                     f" tol=atol {atol:g} + rtol {rtol:g} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{name} {dtype} {label}")
@@ -784,14 +831,25 @@ def phase_paged_kernels(torch, timer, record, failures):
                                             pools[next(iter(pools))].element_size())
                 bms, by = bound(nbytes, flops, dtype)
                 k_ms = timer.ms(lambda: core(*args, **kw))
+                extra = {}
+                if form == "split_wgmma":
+                    k_ms, extra["tile32_ms"], text = old_form_in_turns(
+                        torch, timer, lambda: core(*args, **kw),
+                        lambda: core(*args, form="tile32", **kw), "tile32", ref, k_ms, atol,
+                        rtol, failures, f"{name} tile32 {label}")
+                    line += text
                 p_ms = timer.ms(lambda: plain(*args, **kw))
                 l_ms = timer.ms(lambda: _sdpa_paged(torch, kind, q, pools, pt, positions,
                                                     KV, hd, a_k, cos, sin))
                 line += (f" | kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us,"
                          f" gather+SDPA {l_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us"
-                         f" ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                         f" ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP),"
+                         f" {100 * bms / k_ms:.1f}% of the bound")
+                acts = timer.by_activity(lambda: core(*args, **kw))
+                line += "; device us by launch: " + ", ".join(
+                    f"{n} {us:.1f}" for n, us in acts.items())
                 mains[label] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                                "bound_ms": bms, "bound_by": by, "library_ms": l_ms}
+                                "bound_ms": bms, "bound_by": by, "library_ms": l_ms, **extra}
             log(line)
             del pools, a_k, args, out, ref
     shape = (f"B={B} H=KV=32 hd={hd} P={PAGE}, shuffled pool of {NP} pages, positions "
@@ -807,7 +865,7 @@ def phase_paged_kernels(torch, timer, record, failures):
         "name": "paged_latent_attention", "route": "cuda",
         "source": "asvd4llm_tpu_torch/csrc/paged_latent_attention.cu",
         "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:496",
-        **mains["latent"], "shape": shape + ", Rk=Rv=1024",
+        **mains["latent"], "shape": shape + ", Rk=Rv=1024, form split_wgmma",
     }
 
 
@@ -1073,9 +1131,7 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
             greedy(torch, out, prompt, latent_kv=latent_kv)
         counts, forms = kernel_counts(), form_counts()
         log(f"  kernel launches in this run: {counts}; by form: {forms}")
-        for kernel, form in MAIN_FORMS.get(run, {}).items():
-            if not forms[kernel].get(form):
-                raise AssertionError(f"{run}: {kernel} never ran its {form} form")
+        check_forms(run, MAIN_FORMS.get(run, {}), forms)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         counts_by_run[run] = counts
@@ -1088,10 +1144,26 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
 
 
 # the tensor-core form each run's kernel-path work must take: the PPL eval
-# at M=1024 and, in the KV-target run, the latent decode (its ranks padded)
+# at M=1024 (kernel 1, and kernel 3 in the int8 run) and, in the KV-target
+# run, the latent decode (its ranks padded); none of these kernels may run
+# an earlier form (OLD_FORMS) in the run
 MAIN_FORMS = {"weight target": {"fused_lowrank": "wgmma_tiled"},
               "KV-cache target": {"fused_lowrank": "wgmma_tiled",
-                                  "latent_attention": "split_wgmma"}}
+                                  "latent_attention": "split_wgmma"},
+              "int8 factors": {"fused_lowrank_q8": "wgmma_tiled"}}
+OLD_FORMS = ("wmma_tiled", "tile32", "cuda_cores")
+
+
+def check_forms(run, want, forms):
+    """Each kernel of `want` launched its named form in the run, and no
+    earlier form."""
+    for kernel, form in want.items():
+        got = forms.get(kernel, {})
+        if not got.get(form):
+            raise AssertionError(f"{run}: {kernel} never ran its {form} form ({got})")
+        old = [f for f in got if f in OLD_FORMS]
+        if old:
+            raise AssertionError(f"{run}: {kernel} ran the earlier forms {old} ({got})")
 
 
 # ------------------------------------------------------------------ serve
@@ -1108,6 +1180,8 @@ SERVE_RUNS = [
      "paged_latent_attention"),
     ('latent="auto"', "KV-cache target", "auto", None, {}, 1, None),
 ]
+# the form a serve run's kernel must take alone (checked as MAIN_FORMS)
+SERVE_FORMS = {'latent="kv", run(chunk=8)': {"paged_latent_attention": "split_wgmma"}}
 
 
 def serve_traffic(vocab):
@@ -1188,6 +1262,7 @@ def serve_probe(torch, params, spec, latent, use_pallas, opts, prompts, steps=8)
 
     def clone():
         return [{k: v.clone() for k, v in p.items()} for p in eng.pools]
+    params = eng.params  # ranks padded to the kernels' multiple, as the pools are
     fused, _ = paged_decode_step(params, spec, tok, clone(), pt, pos, use_pallas=True)
     plain, _ = paged_decode_step(params, spec, tok, clone(), pt, pos, use_pallas=False)
     rows = [r.slot for r in active]
@@ -1266,7 +1341,9 @@ def phase_serve(torch, models, launches):
             + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items())
             + f"; prefix tokens skipped {st['prefix_tokens_skipped']}; decode step "
             f"{step_ms:.2f} ms")
-        log(f"  kernel launches in this run: {counts}; by form: {form_counts()}")
+        forms = form_counts()
+        log(f"  kernel launches in this run: {counts}; by form: {forms}")
+        check_forms(run, SERVE_FORMS.get(run, {}), forms)
         if opts.get("prefix_cache") and st["prefix_tokens_skipped"] <= 0:
             raise AssertionError("the shared prefix was never served from the prefix cache")
         want = kernel or ("paged_latent_attention" if eng.latent == "kv"

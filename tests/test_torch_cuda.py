@@ -547,6 +547,102 @@ def test_paged_kernels_match_plain(cuda, dtype, case):
     torch.testing.assert_close(out, ref_fn(*args, **kw), atol=tol, rtol=tol)
 
 
+# Kernel 6's split form at its edges (bf16): page sizes 8 to 512 (boxes of
+# 8..128 rows, or 128-row boxes inside a page), positions on chunk and page
+# boundaries, an idle slot, GQA rep 4, head dim 64, the "kv" serve run's
+# padded ranks 824/416 and 1024, sliding windows and softcap. Each case runs
+# both forms on the same inputs: split_wgmma as `_latent_form` picks it,
+# tile32 when named.
+PAGED_SPLIT_EDGE_CASES = {
+    # name: (P, KV, rep, hd, Rk, Rv, softcap, sliding)
+    "p8_mha_r824_416": (8, 8, 1, 128, 824, 416, 0.0, 0),
+    "p16_rep4_hd64_sliding": (16, 2, 4, 64, 256, 192, 0.0, 100),
+    "p64_softcap_r1024": (64, 4, 1, 128, 1024, 1024, 30.0, 0),
+    "p128_rep4": (128, 2, 4, 128, 512, 256, 0.0, 0),
+    "p256_mha_r1024": (256, 8, 1, 128, 1024, 1024, 0.0, 0),
+    "p512_hd64_sliding_softcap": (512, 2, 2, 64, 136, 72, 20.0, 300),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["split_wgmma", "tile32"])
+@pytest.mark.parametrize("case", sorted(PAGED_SPLIT_EDGE_CASES))
+def test_paged_latent_split_form_edges(cuda, case, form):
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    P, KV, rep, hd, Rk, Rv, cap, sw = PAGED_SPLIT_EDGE_CASES[case]
+    rng = np.random.RandomState(P + Rk)
+    d = _paged_case_inputs(rng, cuda, torch.bfloat16, 7, KV, rep, hd, P, Rk, Rv)
+    mp = d["pt"].shape[1]
+    # rows at the last key, idle (page table all 0), the end and start of a
+    # chunk, of a page, inside the second page
+    positions = [mp * P - 1, 0, 127, 128, P - 1, P, P + 3]
+    B = len(positions)
+    d["positions"] = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    args = (d["q"], d["tk_pool"], d["tv_pool"], d["a_k"], d["cos"], d["sin"], d["pt"],
+            d["positions"])
+    kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+    assert pa._latent_form(torch.bfloat16, hd, Rk, Rv, P) == "split_wgmma"
+    counter = pa.paged_latent_decode_attention
+    n0 = counter.launches
+    out = pa._paged_latent_core(*args, form=None if form == "split_wgmma" else form, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1 and counter.last_form == form
+    assert out.shape == (B, KV * rep, Rv) and bool(torch.isfinite(out).all())
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(out, pa.paged_latent_reference(*args, **kw), atol=tol, rtol=tol)
+
+
+# Kernel 3's tiled form at its edges (bf16): the smallest tiled M, one and
+# two row tiles, the PPL eval's M = 1024 at the seven Llama-2-7B linears,
+# ranks that are not multiples of 64 (but of 16, so that unpadded A8 rows
+# stay 16-byte aligned), codes padded past their true dims, bias on and
+# off; each also in the WMMA form on the same inputs.
+Q8_WGMMA_SHAPES = [  # (M, K, N, R)
+    (17, 256, 130, 48), (64, 512, 136, 208), (129, 1024, 520, 80),
+    (1024, 4096, 4096, 1920), (1024, 4096, 11008, 2688), (1024, 11008, 4096, 2688),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,R", Q8_WGMMA_SHAPES)
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("pad", [False, True])
+def test_fused_q8_wgmma_form_edges(cuda, M, K, N, R, bias, pad):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    rng = np.random.RandomState(M + N + R)
+    x, a8, aq, b8, bq, bv = _q8_inputs(rng, cuda, torch.bfloat16, M, K, N, R, bias, pad)
+    args = (x, a8, aq.scale, aq.zero, b8, bq.scale, bq.zero, bv)
+    ref = fq.fused_lowrank_q8_reference(*args).float()
+    assert fq._form_q8(M, K, R, b8.shape[1], a8.shape[1], torch.bfloat16) == "wgmma_tiled"
+    counter = fq.fused_lowrank_apply_q8
+    tol = TOL["bfloat16"]
+    for form in (None, "wmma_tiled"):
+        n0 = counter.launches
+        out = fq._launch_q8(*args, form=form)
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + 1 and counter.last_form == (form or "wgmma_tiled")
+        assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+        torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_new_forms_refuse_shapes_they_do_not_take(cuda):
+    """A form named for a shape it does not take raises from the launcher:
+    nothing falls back to another form or to the plain version."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    rng = np.random.RandomState(1)
+    d = _paged_case_inputs(rng, cuda, torch.bfloat16, 2, 2, 2, 64, 16, 100, 72)
+    args = (d["q"], d["tk_pool"], d["tv_pool"], d["a_k"], d["cos"], d["sin"], d["pt"],
+            d["positions"])
+    kw = dict(scale=0.125, softcap=0.0, sliding=0, kv_heads=2)
+    with pytest.raises(RuntimeError, match="launch failed"):   # Rk = 100
+        pa._paged_latent_core(*args, form="split_wgmma", **kw)
+    x, a8, aq, b8, bq, bv = _q8_inputs(rng, cuda, torch.float32, 40, 256, 48, 64, True, False)
+    with pytest.raises(RuntimeError, match="launch failed"):   # f32
+        fq._launch_q8(x, a8, aq.scale, aq.zero, b8, bq.scale, bq.zero, bv, form="wgmma_tiled")
+
+
 @pytest.mark.gpu
 def test_paged_kernels_raise_instead_of_falling_back(cuda):
     from asvd4llm_tpu_torch.ops import paged_attention as pa
