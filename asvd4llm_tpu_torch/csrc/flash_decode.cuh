@@ -431,18 +431,25 @@ combine_chunks(const float* __restrict__ ws_s, const float* __restrict__ ws_ml,
   if (v >= SV) return;
   const int rep = H / KV, g = h / rep, r = h % rep;
   const size_t base = ((size_t)b * KV + g) * NS;
+  // Unrolled so that a thread's loads of several chunks are in flight
+  // together: one dependent round trip per chunk set this launch's time. A
+  // chunk with no live key left its numerator unwritten; it is loaded with
+  // the others and not summed.
   float M = kNeg;
+#pragma unroll 8
   for (int j = 0; j < NS; ++j) {
     const float* ml = ws_ml + ((base + j) * rep + r) * 2;
     if (ml[1] > 0.f) M = fmaxf(M, ml[0]);
   }
   float den = 0.f, num = 0.f;
+#pragma unroll 8
   for (int j = 0; j < NS; ++j) {
     const float* ml = ws_ml + ((base + j) * rep + r) * 2;
-    if (ml[1] > 0.f) {
-      const float w = expf(ml[0] - M);
-      den = fmaf(w, ml[1], den);
-      num = fmaf(w, ws_s[((base + j) * rep + r) * SV + v], num);
+    const float m = ml[0], l = ml[1], s = ws_s[((base + j) * rep + r) * SV + v];
+    if (l > 0.f) {
+      const float w = expf(m - M);
+      den = fmaf(w, l, den);
+      num = fmaf(w, s, num);
     }
   }
   out[((size_t)b * H + h) * SV + v] = num / den;

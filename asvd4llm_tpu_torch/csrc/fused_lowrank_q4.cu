@@ -23,31 +23,58 @@
 // (Rp·Kp + N·Rp)/2 bytes, plus 8 bytes of f32 scales per row and group
 // (12.5% more at group 128). At M = 1024 the tensor cores bound it.
 //
-// Design (kernel 1's, fused_lowrank.cu, with a dequantization in front of
-// every product):
-//   * the scales change along k every `group` columns, so a code cannot be
-//     multiplied raw and corrected afterwards as in the q8 kernel: every
-//     lane dequantizes its codes in registers before the MMA;
-//   * the split-half layout needs no unshuffle: the k order of a dot
-//     product is free, so a lane's 16 packed bytes give codes at columns
-//     c..c+15 (low nibbles) and c+256..c+271 (high nibbles), and X is read
-//     at those same columns;
-//   * bf16, M <= 16 (`skinny_q4`): mma.sync m16n8k16 with the operands
-//     swapped, one 512-column tile per pass (256 packed bytes a row), X
-//     staged in shared memory; each 16-byte load feeds eight MMAs, four for
-//     its low nibbles and four for its high nibbles;
-//   * bf16, M > 16 (`tiled_q4`): 64 x 64 output tiles on WMMA; a stage is
-//     32 packed bytes a row, dequantized into shared memory as 64 bf16
-//     columns (the 32 low-nibble columns, then their 32 high-nibble
-//     partners) with X staged in the same order;
-//   * f32: the CUDA-core forms of lowrank_common.cuh, dequantizing each
-//     code as they load it.
-//   X is never read past its K columns (K <= Kp): those columns read as 0.
-//   Every `group` that is a multiple of 16 and divides 256 is taken, so a
-//   16-column run of codes never crosses a group.
+// Forms, chosen by the wrapper (`ops/fused_lowrank_q.py::_form_q4`) and
+// passed in:
+//   * "wgmma_tiled" (bf16, M > 16, K a multiple of 8, 16-byte aligned
+//     operands): two launches of `gemm_nt_q4` below, kernel 1's TMA-fed
+//     wgmma GEMM (gemm_sm90.cuh) with a dequantizing converter in front of
+//     the products. Stage 1 writes t = T(x · dq(B4)ᵀ) over all Rp rows of B4
+//     (padded rows have scale 0, so t's padded columns are exactly 0);
+//     stage 2 writes y = T(T(t) · dq(A4)ᵀ + bias) with its k loop over Rp.
+//     A producer warp keeps TMA loads of X's bf16 stage and W's packed bytes
+//     (uint8, no swizzle) a ring's depth ahead. A ring stage is 64 packed
+//     bytes of each W row: their low nibbles are logical columns
+//     [c, c + 64) of a 512-column pack tile, their high nibbles
+//     [c + 256, c + 320), so X's stage is two 64-column TMA boxes at exactly
+//     those columns and each half is one gemm_nt k-step with its own W tile
+//     (the k order of a dot product is free: nothing is unshuffled). The
+//     consumer warpgroups dequantize each half (code·scale − zero_scale in
+//     f32, rounded once to bf16: the plain version's arithmetic, so no
+//     correction follows the products) into the 128-byte swizzle that TMA
+//     would have written, where gemm_nt's wgmma descriptors read it; the
+//     converted tiles rotate over three buffers, so that the conversion of
+//     one half overlaps the products of the previous one. A 16-column run of
+//     codes never crosses a group, so each converter thread reads one
+//     (scale, zero_scale) pair per row and half, before it waits for the
+//     stage. The epilogue adds the bias in f32 and rounds once. No memset,
+//     atomics or finishing launches: t leaves stage 1 as bf16.
+//   * The split-K forms (the first design), for everything else, summing
+//     in an f32 scratch that `round_t` and `finalize_bias` finish:
+//     - "mma_skinny" (bf16, M <= 16, `skinny_q4`): mma.sync m16n8k16 with the
+//       operands swapped, one 512-column tile per pass (256 packed bytes a
+//       row), X staged in shared memory; each 16-byte load feeds eight
+//       MMAs, four for its low nibbles and four for its high nibbles;
+//     - "wmma_tiled" (bf16, M > 16, shapes the wgmma form does not take,
+//       `tiled_q4`): 64 x 64 output tiles on WMMA; a stage is 32 packed bytes
+//       a row, dequantized into shared memory as 64 bf16 columns (the 32
+//       low-nibble columns, then their 32 high-nibble partners) with X
+//       staged in the same order;
+//     - "cuda_cores" (f32, or codes not 16-byte aligned): the CUDA-core
+//       forms of lowrank_common.cuh, dequantizing each code as they load it.
+//   Every lane of the split-K forms dequantizes its codes in registers
+//   before the MMA (the scales change along k every `group` columns, so a
+//   code cannot be multiplied raw and corrected afterwards as in the q8
+//   kernel). X is never read past its K columns (K <= Kp): those columns
+//   read as 0. Every `group` that is a multiple of 16 and divides 256 is
+//   taken, so a 16-column run of codes never crosses a group.
+// Known costs of the wgmma form, for later work: as in kernel 3, every row
+// tile of X converts the same W stage again (8 times at M = 1024), and the
+// conversion is a multiply, a subtract and a rounding per code; the rows of
+// B4 that pad R up to 512 are computed, though their columns of t are 0.
 
 #include <mma.h>
 
+#include "gemm_sm90.cuh"
 #include "lowrank_common.cuh"
 
 namespace {
@@ -275,19 +302,214 @@ int run(const T* x, const Q4& B, const Q4& A, const T* bias, T* y, float* scratc
   return (int)cudaGetLastError();
 }
 
+// ---- the wgmma form ("wgmma_tiled") ----------------------------------------
+
+constexpr int kBK = sm90::kBK;           // packed bytes of a ring stage, and the
+                                         // logical columns of each of its halves
+constexpr int kRowBytes = sm90::kRowBytes;
+
+// Ring depth of gemm_nt_q4: three converted bf16 W tiles [BN][64], then as
+// many (X [2][BM][64] bf16, W4 [BN][64] bytes) ring stages as fit in about
+// 220 KB, at most 4 (2 at 128 x 256, 3 at 128 x 176 or 192, 4 at 128 x 128).
+__host__ __device__ constexpr int q4_stages(int BM, int BN) {
+  return (220 * 1024 - 3 * BN * kRowBytes) / (2 * BM * kRowBytes + BN * kBK) < 4
+             ? (220 * 1024 - 3 * BN * kRowBytes) / (2 * BM * kRowBytes + BN * kBK)
+             : 4;
+}
+
+__host__ __device__ constexpr size_t q4_smem_bytes(int BM, int BN) {
+  return 1024 + 3 * (size_t)BN * kRowBytes
+         + (size_t)q4_stages(BM, BN) * (2 * BM * kRowBytes + BN * kBK + 16);
+}
+
+// out[M, N] = round(X[M, Kx] · dq(W4)[N, 2P]ᵀ (+ bias)) in bf16, f32
+// accumulation; W4 rows of P packed bytes (P a multiple of 256), sc/zs
+// [N, ngrp] f32. gemm_nt (gemm_sm90.cuh) with a dequantizing converter:
+//   * ring stage kt holds W4's packed bytes [64kt, 64kt + 64) of the block's
+//     BN rows and X's two 64-column boxes at the logical columns of their
+//     low and high nibbles, (kt/4)·512 + (kt%4)·64 and that + 256;
+//   * half-step i = 2kt + h: the consumer warpgroups dequantize half h (low
+//     or high nibbles) into converted buffer i % 3, a proxy fence and a
+//     barrier of the consumers make it visible to wgmma, then each runs the
+//     four k16 products of its 64 rows against it. Buffer i % 3 was last
+//     read by the products of half-step i − 3, which both warpgroups
+//     finished (wait_group 1 in half-step i − 2) before the barrier of
+//     half-step i − 1;
+//   * a ring stage is free once the products of its high half are done,
+//     which wait_group 1 of the next half-step shows.
+// TMA fills X and W4 past M, Kx and N with zeros, and converter rows past N
+// take scale 0, so ragged edges add 0.
+template <int NC, int BN>
+__global__ void __launch_bounds__(NC * 128 + 32)
+gemm_nt_q4(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w4,
+           bf16* __restrict__ out, const float* __restrict__ sc, const float* __restrict__ zs,
+           const bf16* __restrict__ bias, int M, int N, int P, int ngrp, int group) {
+  constexpr int BM = 64 * NC, S = q4_stages(64 * NC, BN), NT = NC * 128;
+  constexpr int J = (BN * 4 + NT - 1) / NT;  // 16-byte code chunks a thread converts per half
+  extern __shared__ __align__(128) unsigned char q4_smem[];
+  unsigned char* base = sm90::align1024(q4_smem);
+  bf16* wb = reinterpret_cast<bf16*>(base);                            // [3][BN][64]
+  bf16* xs = wb + 3 * (size_t)BN * kBK;                                // [S][2][BM][64]
+  uint8_t* w4 = reinterpret_cast<uint8_t*>(xs + (size_t)S * 2 * BM * kBK);  // [S][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(w4 + (size_t)S * BN * kBK);
+  uint64_t* empty = full + S;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = P / kBK;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4 * NC);  // lane 0 of every consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // producer warp
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % S;
+        if (kt >= S) sm90::mbar_wait(&empty[s], ((kt / S) - 1) & 1);
+        sm90::mbar_expect_tx(&full[s], 2 * BM * kRowBytes + BN * kBK);
+        const int col = (kt / 4) * 512 + (kt % 4) * kBK;  // the low nibbles' first column
+        bf16* x0 = xs + (size_t)s * 2 * BM * kBK;
+        sm90::tma_load_2d(x0, &map_x, col, m0, &full[s]);
+        sm90::tma_load_2d(x0 + (size_t)BM * kBK, &map_x, col + 256, m0, &full[s]);
+        sm90::tma_load_2d(w4 + (size_t)s * BN * kBK, &map_w4, kt * kBK, n0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int cc = threadIdx.x % 4;  // the thread's 16-byte chunk of each code row
+  float acc[BN / 2];               // written first by the first products
+  float scl[J][2], zsc[J][2];      // (scale, zero_scale) of the thread's rows, both halves
+  for (int i = 0; i < 2 * KT; ++i) {
+    const int kt = i >> 1, h = i & 1, s = kt % S;
+    if (h == 0) {
+      // this stage's scales, loaded before the wait for its bytes
+      const int col = (kt / 4) * 512 + (kt % 4) * kBK + cc * 16;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int n = n0 + (threadIdx.x + j * NT) / 4;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const size_t gi = (size_t)n * ngrp + (col + hh * 256) / group;
+          const bool in = n < N && threadIdx.x + j * NT < BN * 4;
+          scl[j][hh] = in ? __ldg(sc + gi) : 0.f;
+          zsc[j][hh] = in ? __ldg(zs + gi) : 0.f;
+        }
+      }
+      sm90::mbar_wait(&full[s], (kt / S) & 1);
+    }
+    const uint8_t* src = w4 + (size_t)s * BN * kBK;
+    bf16* dst = wb + (size_t)(i % 3) * BN * kBK;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int it = threadIdx.x + j * NT;
+      if (it < BN * 4) {
+        const int n = it / 4;
+        const uint4 v = *reinterpret_cast<const uint4*>(src + n * kBK + cc * 16);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        const float sj = h ? scl[j][1] : scl[j][0], zj = h ? zsc[j][1] : zsc[j][0];
+        uint32_t p[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          q4x4_to_bf16((h ? w[q] >> 4 : w[q]) & 0x0F0F0F0Fu, sj, zj, p[2 * q], p[2 * q + 1]);
+        *reinterpret_cast<uint4*>(dst + n * kBK + (((2 * cc) ^ (n % 8)) * 8)) =
+            make_uint4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<uint4*>(dst + n * kBK + (((2 * cc + 1) ^ (n % 8)) * 8)) =
+            make_uint4(p[4], p[5], p[6], p[7]);
+      }
+    }
+    sm90::fence_proxy_async();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+    sm90::wgmma_fence();
+    const uint64_t da = sm90::desc_sw128(xs + ((size_t)(2 * s + h) * BM + wg * 64) * kBK);
+    const uint64_t db = sm90::desc_sw128(dst);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      sm90::wgmma_k16<BN>(acc, sm90::desc_k(da, kk), sm90::desc_k(db, kk), i > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // the previous half-step's products are done
+    if (h == 0 && i > 0 && lane == 0) sm90::mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(acc);
+  sm90::store_bias_round<NC, BN>(acc, base, out, bias, M, N, m0, n0);
+}
+
+template <int NC, int BN>
+cudaError_t launch_q4_tile(const CUtensorMap& mx, const CUtensorMap& mw, bf16* out, const Q4& W,
+                           const bf16* bias, int M, int N, cudaStream_t stream) {
+  const size_t bytes = q4_smem_bytes(64 * NC, BN);
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt_q4<NC, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN);
+  gemm_nt_q4<NC, BN><<<grid, NC * 128 + 32, bytes, stream>>>(mx, mw, out, W.sc, W.zs, bias, M,
+                                                             N, W.ld, W.ngrp, W.group);
+  return cudaGetLastError();
+}
+
+// out[M, N] = T(X[M, Kx] · dq(W)[N, :]ᵀ (+ bias)) through gemm_nt_q4, with
+// gemm_nt's tile choice: X bf16 with Kx a multiple of 8, W's N rows of
+// W.ld packed bytes (a multiple of 256), both 16-byte aligned.
+cudaError_t launch_gemm_nt_q4(const bf16* X, int Kx, const Q4& W, int N, bf16* out,
+                              const bf16* bias, int M, cudaStream_t stream) {
+  const int NC = M >= 128 ? 2 : 1;
+  const int BN = sm90::gemm_tile_n(M, N, 64 * NC);
+  CUtensorMap mx, mw;
+  cudaError_t err = sm90::encode_rows(&mx, X, M, Kx, 64 * NC);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)W.ld, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)W.ld};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)BN};
+  err = sm90::encode_map(&mw, 2, W.w, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  switch (NC * 1000 + BN) {
+    case 2256: return launch_q4_tile<2, 256>(mx, mw, out, W, bias, M, N, stream);
+    case 2192: return launch_q4_tile<2, 192>(mx, mw, out, W, bias, M, N, stream);
+    case 2176: return launch_q4_tile<2, 176>(mx, mw, out, W, bias, M, N, stream);
+    case 2128: return launch_q4_tile<2, 128>(mx, mw, out, W, bias, M, N, stream);
+    case 1256: return launch_q4_tile<1, 256>(mx, mw, out, W, bias, M, N, stream);
+    case 1192: return launch_q4_tile<1, 192>(mx, mw, out, W, bias, M, N, stream);
+    case 1176: return launch_q4_tile<1, 176>(mx, mw, out, W, bias, M, N, stream);
+    default: return launch_q4_tile<1, 128>(mx, mw, out, W, bias, M, N, stream);
+  }
+}
+
+// The wgmma form: t = T(x · dq(B4)ᵀ) into `t` [M, Rp], then
+// y = T(T(t) · dq(A4)ᵀ + bias).
+int run_sm90(const bf16* x, const Q4& B, const Q4& A, const bf16* bias, bf16* y, bf16* t, int M,
+             int K, int Rp, int N, cudaStream_t s) {
+  if (M <= kSkinnyMaxM || K % 8 != 0 || !aligned16(x) || !aligned16(B.w) || !aligned16(A.w) ||
+      !aligned16(t))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_gemm_nt_q4(x, K, B, Rp, t, nullptr, M, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_gemm_nt_q4(t, Rp, A, N, y, bias, M, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x [M,K] (K <= Kp) and y [M,N] of the io
 // type; b4 [Rp, Kp/2] packed codes with bsc/bzs [Rp, Kp/group] f32; a4
 // packed codes, N rows of Rp/2 bytes, with asc/azs [N, Rp/group] f32; bias
 // [N] of the io type or null; Rp and Kp multiples of 512; group a multiple
-// of 16 dividing 256. scratch holds M·(Rp+N) f32 values, t M·Rp values of
-// the io type. Returns cudaGetLastError() after the launches (0 = success).
+// of 16 dividing 256. t holds M·Rp values of the io type. form: 0 = the
+// split-K forms (scratch holds M·(Rp+N) f32 values, zeroed here), 1 = the
+// wgmma form (bf16 only; scratch unused). Returns cudaGetLastError() after
+// the launches (0 = success), cudaErrorInvalidValue for a form the shape
+// does not allow.
 extern "C" int fused_lowrank_q4_launch(const void* x, const void* b4, const void* bsc,
                                        const void* bzs, const void* a4, const void* asc,
                                        const void* azs, const void* bias, void* y,
                                        void* scratch, void* t, int M, int K, int Rp, int Kp,
-                                       int N, int group, int dtype, void* stream) {
+                                       int N, int group, int form, int dtype, void* stream) {
   if (Rp % 512 != 0 || Kp % 512 != 0 || group % 16 != 0 || 256 % group != 0 || K > Kp)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -295,6 +517,12 @@ extern "C" int fused_lowrank_q4_launch(const void* x, const void* b4, const void
              static_cast<const float*>(bzs), Kp / 2, Kp / group, group};
   const Q4 A{static_cast<const uint8_t*>(a4), static_cast<const float*>(asc),
              static_cast<const float*>(azs), Rp / 2, Rp / group, group};
+  if (form == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return run_sm90(static_cast<const bf16*>(x), B, A, static_cast<const bf16*>(bias),
+                    static_cast<bf16*>(y), static_cast<bf16*>(t), M, K, Rp, N, s);
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   float* scr = static_cast<float*>(scratch);
   if (dtype == 0)
     return run<float>(static_cast<const float*>(x), B, A, static_cast<const float*>(bias),

@@ -5,7 +5,9 @@
 // `gemm_nt_i8`, the same GEMM with an int8-coded weight operand converted to
 // bf16 in shared memory and a per-column dequantizing epilogue (kernel 3's
 // tiled form, fused_lowrank_q8.cu). The split tile of kernels 2 and 6
-// (latent_split.cuh) runs its up-projection on the same pieces.
+// (latent_split.cuh) runs its up-projection on the same pieces; kernel 4's
+// tiled form (fused_lowrank_q4.cu) and kernel 5's split form
+// (paged_dense_attention.cu) use the barriers, TMA loads and fragments.
 //
 // Operand layout, the one wgmma reads without transposing: both operands
 // K-major (rows of K contiguous values), each stage tile [rows][64] bf16 =
@@ -100,6 +102,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -287,6 +299,24 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
                : "r"(smem_u32(p)));
 }
 
+// Four 8x8 bf16 matrices, transposed: the A fragment of mma16816 from a tile
+// stored [k][m] (m contiguous), when lane l points at row k0 + 8·(l / 16) +
+// l % 8, column m0 + 8·((l / 8) % 2).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Two 8x8 bf16 matrices: the B fragment of mma16816 from a tile stored
+// [n][k] (k contiguous), when lane l < 16 points at row n0 + l % 8, column
+// k0 + 8·(l / 8).
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da, uint64_t db,
                                           int accumulate) {
@@ -359,6 +389,52 @@ __host__ __device__ constexpr size_t gemm_smem_bytes(int BM, int BN) {
   return 1024 + (size_t)gemm_stages(BM, BN) * ((BM + BN) * kRowBytes + 16);
 }
 
+// The epilogue of gemm_nt and of kernel 4's gemm_nt_q4: out's tile at
+// (m0, n0) = round(acc + bias) in bf16, the bias added in f32, one
+// rounding; the consumer warpgroups stage their rows in shared memory at
+// `smem` (free once both are past their last products), so that each row
+// leaves in 16-byte stores.
+template <int NC, int BN>
+__device__ __forceinline__ void store_bias_round(const float (&acc)[BN / 2], unsigned char* smem,
+                                                 bf16* __restrict__ out,
+                                                 const bf16* __restrict__ bias, int M, int N,
+                                                 int m0, int n0) {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
+  constexpr int LD = BN + 8;  // row stride: the 8 rows a warp writes at once miss
+                              // each other's banks
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  bf16* cs = reinterpret_cast<bf16*>(smem) + (size_t)wg * 64 * LD;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    float b0 = 0.f, b1 = 0.f;
+    if (bias != nullptr) {
+      if (n0 + c < N) b0 = __bfloat162float(bias[n0 + c]);
+      if (n0 + c + 1 < N) b1 = __bfloat162float(bias[n0 + c + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + lane / 4 + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(cs + r * LD + c) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
+  const bool vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int i = threadIdx.x % 128; i < 64 * (BN / 8); i += 128) {
+    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+    const int m = m0 + wg * 64 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const bf16* src = cs + r * LD + c;
+    bf16* dst = out + (size_t)m * N + n;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
 // out[M, N] = round(X[M, K] · W[N, K]ᵀ (+ bias)) in bf16, f32 accumulation.
 // Block: NC consumer warpgroups, each owning 64 rows of a (64·NC) x BN
 // output tile, then one producer warp whose lane 0 keeps the TMA loads of X
@@ -423,44 +499,7 @@ gemm_nt(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUten
   }
   wgmma_wait<0>();
   fence_operands(acc);
-
-  // Epilogue: bias in f32, one rounding, then out through shared memory (the
-  // ring is free once both warpgroups are past their last products), so
-  // that each row leaves in 16-byte stores.
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
-  constexpr int LD = BN + 8;  // row stride: the 8 rows a warp writes at once miss
-                              // each other's banks
-  bf16* cs = reinterpret_cast<bf16*>(base) + (size_t)wg * 64 * LD;
-  const int warp = (threadIdx.x % 128) / 32;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = 8 * j + 2 * (lane % 4);
-    float b0 = 0.f, b1 = 0.f;
-    if (bias != nullptr) {
-      if (n0 + c < N) b0 = __bfloat162float(bias[n0 + c]);
-      if (n0 + c + 1 < N) b1 = __bfloat162float(bias[n0 + c + 1]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = warp * 16 + lane / 4 + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(cs + r * LD + c) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
-    }
-  }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
-  const bool vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (int i = threadIdx.x % 128; i < 64 * (BN / 8); i += 128) {
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    const int m = m0 + wg * 64 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const bf16* src = cs + r * LD + c;
-    bf16* dst = out + (size_t)m * N + n;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && n + e < N; ++e) dst[e] = src[e];
-    }
-  }
+  store_bias_round<NC, BN>(acc, base, out, bias, M, N, m0, n0);
 }
 
 template <int NC, int BN>

@@ -19,9 +19,10 @@ is dequantize + two plain matmuls (what the JAX package runs there and on
 the CPU). At or below it, a CUDA tensor launches the kernel or raises, and
 a CPU tensor takes the plain version. True dims come from the scales, so
 code arrays may arrive padded (as the JAX serving engine pre-pads them).
-``_form_q8`` names, from the shape, the form of kernel 3 a call runs (the
-header of its CUDA source describes each); ``fused_lowrank_q8_tiled_model``
-is the plain version of the arithmetic of its "wgmma_tiled" form.
+``_form_q8`` and ``_form_q4`` name, from the shape, the form of kernel 3 or
+4 a call runs (the headers of the CUDA sources describe each);
+``fused_lowrank_q8_tiled_model`` and ``fused_lowrank_q4_tiled_model`` are
+the plain versions of the arithmetic of their "wgmma_tiled" forms.
 """
 
 from __future__ import annotations
@@ -217,7 +218,55 @@ def fused_lowrank_q4_reference(x2: torch.Tensor, a4, asc, azs, b4, bsc, bzs,
     return fused_lowrank_reference(x2, a, b, bias)
 
 
-def _launch_q4(x2, a4, asc, azs, b4, bsc, bzs, bias, group):
+def _form_q4(M: int, K: int, dtype: torch.dtype, w_aligned: bool = True,
+             x_aligned: bool = True) -> str:
+    """The kernel form a call of kernel 4 runs: "wgmma_tiled" (bf16,
+    M > 16, K a multiple of 8, 16-byte aligned x and codes), "mma_skinny"
+    (bf16, M <= 16), "wmma_tiled" (bf16, M > 16, the other x), or
+    "cuda_cores" (f32, or codes not 16-byte aligned). Code rows are always
+    16-byte multiples: Rp and Kp are multiples of 512."""
+    if dtype != torch.bfloat16 or not w_aligned:
+        return "cuda_cores"
+    if M <= _SKINNY_MAX_M:
+        return "mma_skinny"
+    return "wgmma_tiled" if K % 8 == 0 and x_aligned else "wmma_tiled"
+
+
+def fused_lowrank_q4_tiled_model(x2: torch.Tensor, a4, asc, azs, b4, bsc, bzs,
+                                 bias: Optional[torch.Tensor], group: int = 128,
+                                 bk: int = 64) -> torch.Tensor:
+    """The arithmetic of the "wgmma_tiled" form in plain PyTorch: each
+    factor dequantized (code·scale − zero_scale in f32, rounded once to x's
+    dtype) and consumed in the kernel's half-steps: ring stage kt holds the
+    packed bytes [bk·kt, bk·kt + bk) of every row, whose low nibbles are the
+    logical columns (kt·bk // 256)·512 + (kt·bk % 256) + [0, bk) and whose
+    high nibbles are those + 256; each half is one product of x's columns
+    there, summed in f32 in that order. t = T(sum) over all Rp rows of B4;
+    y = T(T(t)·dq(A4)ᵀ over Rp + bias)."""
+    N, Rp, K = asc.shape[0], b4.shape[0], x2.shape[1]
+    a = dequantize_int4_grouped(a4[:N], asc, azs, group=group, dtype=x2.dtype)
+    b = dequantize_int4_grouped(b4, bsc, bzs, group=group, dtype=x2.dtype)
+
+    def gemm(xv, w):   # xv [M, cols] (zero past its width), w [rows, 2·bytes]
+        xv = torch.nn.functional.pad(xv.float(), (0, w.shape[1] - xv.shape[1]))
+        acc = torch.zeros(xv.shape[0], w.shape[0], dtype=torch.float32, device=xv.device)
+        for p0 in range(0, w.shape[1] // 2, bk):
+            lo = (p0 // 256) * 512 + p0 % 256
+            for c in (lo, lo + 256):
+                acc = acc + torch.matmul(xv[:, c:c + bk], w[:, c:c + bk].float().t())
+        return acc
+
+    t = gemm(x2, b).to(x2.dtype)
+    y = gemm(t, a)
+    if bias is not None:
+        y = y + bias.to(x2.dtype).float()
+    return y.to(x2.dtype)
+
+
+def _launch_q4(x2, a4, asc, azs, b4, bsc, bzs, bias, group, form=None):
+    """Launch kernel 4 in the form `_form_q4` names; `form` (measurements
+    only) names another, which the launcher refuses where the shape does
+    not allow it."""
     M, K = x2.shape
     N, Rp, Kp = asc.shape[0], b4.shape[0], b4.shape[1] * 2
     f32, u8 = torch.float32, torch.uint8
@@ -235,9 +284,15 @@ def _launch_q4(x2, a4, asc, azs, b4, bsc, bzs, bias, group):
         raise ValueError(f"fused_lowrank_q4: shapes x {tuple(x2.shape)}, a4 "
                          f"{tuple(a4.shape)}, asc {tuple(asc.shape)}, b4 {tuple(b4.shape)}, "
                          f"bsc {tuple(bsc.shape)}, group {group}")
+    form = form or _form_q4(M, K, x2.dtype, all(t.data_ptr() % 16 == 0 for t in (a4, b4)),
+                            x2.data_ptr() % 16 == 0)
+    code = _FORM_CODES.get(form, 0)
     y = _launch("fused_lowrank_q4", x2, (x2, b4, bsc, bzs, a4, asc, azs, bias),
-                (M, K, Rp, Kp, N, group), N, Rp)
-    fused_lowrank_apply_q4.launches += 1
+                (M, K, Rp, Kp, N, group, code), N, Rp, split_k=code == 0)
+    counter = fused_lowrank_apply_q4
+    counter.launches += 1
+    counter.last_form = form
+    counter.form_launches[form] = counter.form_launches.get(form, 0) + 1
     return y
 
 
@@ -267,9 +322,11 @@ def fused_lowrank_apply_q4(x: torch.Tensor, a4, asc, azs, b4, bsc, bzs,
 
 
 # launches of each CUDA kernel in this process (the plain versions and the
-# large-M matmul path do not count); for kernel 3 also the form of the last
-# launch and the launches by form
+# large-M matmul path do not count), the form of the last launch and the
+# launches by form
 fused_lowrank_apply_q8.launches = 0
 fused_lowrank_apply_q8.last_form = None
 fused_lowrank_apply_q8.form_launches = {}
 fused_lowrank_apply_q4.launches = 0
+fused_lowrank_apply_q4.last_form = None
+fused_lowrank_apply_q4.form_launches = {}

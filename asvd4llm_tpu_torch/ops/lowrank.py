@@ -13,10 +13,16 @@ Two execution paths, as in the JAX package:
 
 ``align_ranks`` zero-pads every low-rank leaf's rank to a multiple of 8,
 which the kernels' tensor-core forms need for 16-byte rows (TMA and
-wgmma). The padding is exact: the zero rows of B give latent columns that
-are exactly 0, and the zero columns of A add nothing. The decode and
-evaluation entry points apply it once when they run the kernels, so the
-latent caches they allocate come out padded too.
+wgmma), and every int8 leaf's rank to a multiple of 16 (16-byte rows of
+int8 codes). The padding is exact: the zero rows of B give latent columns
+that are exactly 0, and the zero columns of A add nothing; an int8 leaf's
+new B8 rows have scale 0 and zero point 0, so its latent columns are
+exactly 0 too, and its new A8 code columns are 0, which leaves the row
+sums of t as they were. Packed int4 leaves need nothing: quantization pads
+their ranks to multiples of 512. The decode, evaluation and serving entry
+points apply it once when they run the kernels, after the search, so the
+latent caches they allocate come out padded too, and the rank manifest
+keeps the true ranks.
 """
 
 from __future__ import annotations
@@ -26,9 +32,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from asvd4llm_tpu_torch.models.registry import is_lowrank, iter_linears, set_linear
+from asvd4llm_tpu_torch.models.registry import (
+    is_lowrank, is_q8_lowrank, iter_linears, set_linear,
+)
 
-RANK_MULTIPLE = 8   # bf16 elements in 16 bytes
+RANK_MULTIPLE = 8      # bf16 elements in 16 bytes
+Q8_RANK_MULTIPLE = 16  # int8 codes in 16 bytes
 
 
 def dense_apply(x: torch.Tensor, w: torch.Tensor,
@@ -51,10 +60,24 @@ def lowrank_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return F.linear(t, a, None if bias is None else bias.to(x.dtype))
 
 
+def _rank(leaf: dict) -> int:
+    return leaf["Bsc"].shape[0] if is_q8_lowrank(leaf) else leaf["A"].shape[1]
+
+
 def pad_rank(leaf: dict, multiple: int = RANK_MULTIPLE) -> dict:
     """A low-rank leaf with its rank zero-padded up to a multiple of
-    `multiple` (A [N, R] gains zero columns, B [R, K] zero rows)."""
-    R = leaf["A"].shape[1]
+    `multiple` (A [N, R] gains zero columns, B [R, K] zero rows). An int8
+    leaf (A8/B8 codes, per-row scales) is padded up to a multiple of
+    Q8_RANK_MULTIPLE at least: A8 gains code columns 0, B8 code rows 0
+    with Bsc = Bzp = 0."""
+    R = _rank(leaf)
+    if is_q8_lowrank(leaf):
+        pad = -R % max(multiple, Q8_RANK_MULTIPLE)
+        if not pad:
+            return leaf
+        rows = lambda v: F.pad(v[:R], (0, 0, 0, pad))  # noqa: E731
+        return dict(leaf, A8=F.pad(leaf["A8"][:, :R], (0, pad)), B8=rows(leaf["B8"]),
+                    Bsc=rows(leaf["Bsc"]), Bzp=rows(leaf["Bzp"]))
     pad = -R % multiple
     if not pad:
         return leaf
@@ -62,9 +85,11 @@ def pad_rank(leaf: dict, multiple: int = RANK_MULTIPLE) -> dict:
 
 
 def align_ranks(params: dict, spec, multiple: int = RANK_MULTIPLE) -> dict:
-    """params with every low-rank leaf through `pad_rank` (a new dict; the
-    given one is not changed)."""
+    """params with every low-rank and int8 low-rank leaf through
+    `pad_rank` (a new dict; the given one is not changed)."""
     for name, leaf in list(iter_linears(params, spec, include_extras=True)):
-        if is_lowrank(leaf) and leaf["A"].shape[1] % multiple:
-            params = set_linear(params, spec, name, pad_rank(leaf, multiple))
+        if is_lowrank(leaf) or is_q8_lowrank(leaf):
+            padded = pad_rank(leaf, multiple)
+            if padded is not leaf:
+                params = set_linear(params, spec, name, padded)
     return params

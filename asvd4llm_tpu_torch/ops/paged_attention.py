@@ -18,18 +18,21 @@ over the keys t ≤ positions[b] (and inside the sliding window):
 
 The kernels are hand-written CUDA (``csrc/paged_dense_attention.cu``,
 ``csrc/paged_latent_attention.cu``); each call is two launches, the row's
-keys split into 128-key chunks over blocks and then the chunks combined,
-with a workspace the wrapper allocates. Kernel 6 has two forms, named by
+keys split into chunks over blocks and then the chunks combined, with a
+workspace the wrapper allocates. Kernel 6 has two forms, named by
 ``_latent_form`` from the shape: "split_wgmma" (kernel 2's split tile,
-``csrc/latent_split.cuh``, its chunk rows loaded by page in TMA boxes that
-``split_boxes`` describes) and "tile32" (kernel 2's 32-key tile body in
-``csrc/flash_decode.cuh``, which kernel 5 uses too).
-``paged_dense_reference`` and ``paged_latent_reference`` are the plain
-PyTorch versions with the same casts, and a CPU tensor takes them;
-``paged_latent_split_reference`` is the plain version of what the split
-form computes per chunk. The query enters in f32 (the JAX kernels
-cast it to f32 too), so pools of another dtype than the model compute what
-the JAX package computes. Page ids must lie in the pool and positions below
+``csrc/latent_split.cuh``, its 128-key chunk rows loaded by page in TMA
+boxes that ``split_boxes`` describes) and "tile32" (kernel 2's 32-key tile
+body in ``csrc/flash_decode.cuh``). Kernel 5 has two forms, named by
+``_dense_form``: "split_tma" (64-key chunks loaded by page in TMA boxes,
+``split_boxes(..., chunk=DENSE_SPLIT_KEYS)``; a V-latent block covers a head
+block of KV groups that its launcher picks) and "tile32" (the same 32-key
+tile body). ``paged_dense_reference`` and ``paged_latent_reference`` are
+the plain PyTorch versions with the same casts, and a CPU tensor takes
+them; ``paged_latent_split_reference`` and ``paged_dense_split_reference``
+are the plain versions of what the split forms compute per chunk. The
+query enters in f32 (the JAX kernels cast it to f32 too), so pools of
+another dtype than the model compute what the JAX package computes. Page ids must lie in the pool and positions below
 ``MP·P``; the engine guarantees both.
 """
 
@@ -45,6 +48,20 @@ from asvd4llm_tpu_torch.ops.latent_attention import (
     _DTYPE_CODES, _FORM_CODES, _HEAD_DIMS, _MAX_REP, _MAX_SMEM, _SPLIT_HEAD_DIMS, SPLIT_KEYS,
     _rotate_half,
 )
+
+_DENSE_FORM_CODES = {"tile32": 0, "split_tma": 1}
+DENSE_SPLIT_KEYS = 64   # keys per block of kernel 5's split form (kChunk in its source)
+
+
+def _dense_form(dtype: torch.dtype, hd: int, SV: int, P: int, aligned: bool = True) -> str:
+    """The kernel form a call of kernel 5 runs: "split_tma" (bf16, head dim
+    64 or 128, V width SV (hd, or Rv for V-latent) a multiple of 8,
+    16-byte aligned pools, page size a power of two of at least 8), else
+    "tile32"."""
+    if (dtype == torch.bfloat16 and hd in _SPLIT_HEAD_DIMS and SV % 8 == 0
+            and P >= 8 and P & (P - 1) == 0 and aligned):
+        return "split_tma"
+    return "tile32"
 
 
 def _latent_form(dtype: torch.dtype, hd: int, Rk: int, Rv: int, P: int,
@@ -189,6 +206,57 @@ def paged_latent_split_reference(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_ful
     return out
 
 
+def paged_dense_split_reference(q_rot, k_pool, v_pool, page_table, positions, *,
+                                scale, softcap, sliding, kv_heads,
+                                chunk=DENSE_SPLIT_KEYS):
+    """Plain version of kernel 5's split form: per row, per KV group (a
+    head's result does not depend on how the kernel groups heads into
+    blocks) and per chunk that ``split_boxes`` launches, the chunk's K (and V or tv) rows loaded as its boxes load
+    them, then per head the chunk's max m_j of the masked logits,
+    den_j = Σ p and s_j = Σ T(p)·V with p = exp(l − m_j) rounded to the
+    pool's type for s only; then out = Σ_j e^(m_j − M)·s_j /
+    Σ_j e^(m_j − M)·den_j over the live chunks, M their largest m_j.
+    -> s [B, H, hd] (dense V) or [B, H, Rv] (V-latent) f32."""
+    B, H, hd = q_rot.shape
+    KV, rep = kv_heads, H // kv_heads
+    P, MP = k_pool.shape[1], page_table.shape[1]
+    v_latent = v_pool.dim() == 3
+    SV = v_pool.shape[2] if v_latent else hd
+    qg = q_rot.float().reshape(B, KV, rep, hd)
+    out = torch.empty((B, H, SV), dtype=torch.float32, device=q_rot.device)
+    for b in range(B):
+        pos = int(positions[b])
+        t_lo = max(0, pos - sliding + 1) if sliding > 0 else 0
+        boxes = split_boxes(P, MP, pos, sliding, chunk)
+
+        def rows(pool, j):
+            return torch.cat([pool[int(page_table[b, lp]), r0:r0 + n]
+                              for _, n, lp, r0 in boxes[j]]).float()
+        for g in range(KV):
+            ms, dens, nums = [], [], []
+            for j in boxes:
+                k = rows(k_pool, j)[:, g]                            # [chunk, hd]
+                t = torch.arange(j * chunk, (j + 1) * chunk, device=q_rot.device)
+                logits = torch.einsum("rd,td->rt", qg[b, g], k) * scale
+                if softcap > 0:
+                    logits = softcap * torch.tanh(logits / softcap)
+                live = (t >= t_lo) & (t <= pos)
+                logits = torch.where(live, logits, torch.full_like(logits, -1e30))
+                m = logits.amax(dim=-1)                              # [rep]
+                p = torch.exp(logits - m[..., None])
+                pv = p.to(v_pool.dtype).float()
+                v = rows(v_pool, j)
+                ms.append(m)
+                dens.append(p.sum(dim=-1))
+                nums.append(pv @ (v if v_latent else v[:, g]))
+            m_all = torch.stack(ms)
+            w = torch.exp(m_all - m_all.amax(dim=0))
+            num = (w[..., None] * torch.stack(nums)).sum(dim=0)
+            den = (w * torch.stack(dens)).sum(dim=0)
+            out[b, g * rep:(g + 1) * rep] = num / den[..., None]
+    return out
+
+
 def _check(kind, q_rot, kv_heads, pool_dtype, tensors):
     """Device, dtype, shape and contiguity checks of a launch;
     ``tensors`` maps a name to (tensor, shape, dtype)."""
@@ -213,13 +281,14 @@ def _check(kind, q_rot, kv_heads, pool_dtype, tensors):
             raise ValueError(f"{kind}: {nm} is not 16-byte aligned")
 
 
-def _workspace(kind, lib, B, H, KV, width, P, MP, device):
+def _workspace(kind, lib, B, H, KV, width, P, MP, device, *form):
     """The f32 workspace of the chunks' partial sums (the kernels split each
     row's keys over blocks and combine them in a second launch)."""
     fn = getattr(lib, f"{kind}_workspace")
     fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 6
-    return torch.empty((fn(B, H, KV, width, P, MP),), dtype=torch.float32, device=device)
+    fn.argtypes = [ctypes.c_int] * (6 + len(form))
+    return torch.empty((fn(B, H, KV, width, P, MP, *form),), dtype=torch.float32,
+                       device=device)
 
 
 def _smem_check(kind, lib, hd, rep, width, MP, *form):
@@ -233,7 +302,7 @@ def _smem_check(kind, lib, hd, rep, width, MP, *form):
 
 
 def _launch_dense(q_rot, k_pool, v_pool, page_table, positions, *, scale,
-                  softcap, sliding, kv_heads):
+                  softcap, sliding, kv_heads, form=None):
     kind = "paged_dense_attention"
     B, H, hd = q_rot.shape
     KV = kv_heads
@@ -249,21 +318,27 @@ def _launch_dense(q_rot, k_pool, v_pool, page_table, positions, *, scale,
         "page_table": (page_table, (B, MP), torch.int32),
         "positions": (positions, (B,), torch.int32)})
     lib = _build.library(kind)
-    _smem_check(kind, lib, hd, H // KV, SV, MP)
-    ws = _workspace(kind, lib, B, H, KV, SV, P, MP, q_rot.device)
+    form = form or _dense_form(dt, hd, SV, P, all(t.data_ptr() % 16 == 0
+                                                 for t in (k_pool, v_pool)))
+    code = _DENSE_FORM_CODES[form]
+    _smem_check(kind, lib, hd, H // KV, SV, MP, code)
+    ws = _workspace(kind, lib, B, H, KV, SV, P, MP, q_rot.device, code)
     fn = lib.paged_dense_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     out = torch.empty((B, H, SV), dtype=torch.float32, device=q_rot.device)
     with torch.cuda.device(q_rot.device):
         stream = torch.cuda.current_stream(q_rot.device).cuda_stream
         err = fn(q_rot.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), positions.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                 B, H, KV, hd, P, MP, SV, int(v_latent), float(scale),
+                 B, H, KV, hd, NP, P, MP, SV, int(v_latent), code, float(scale),
                  float(softcap), int(sliding), _DTYPE_CODES[dt], stream)
     _build.check(lib, kind, err)
-    paged_dense_decode_attention.launches += 1
+    counter = paged_dense_decode_attention
+    counter.launches += 1
+    counter.last_form = form
+    counter.form_launches[form] = counter.form_launches.get(form, 0) + 1
     return out
 
 
@@ -312,13 +387,16 @@ def _launch_latent(q_rot, tk_pool, tv_pool, a_k, cos_full, sin_full, page_table,
 
 
 def _paged_dense_core(q_rot, k_pool, v_pool, page_table, positions, *, scale,
-                      softcap, sliding, kv_heads):
+                      softcap, sliding, kv_heads, form=None):
     """q_rot [B, H, hd] (f32 on a CUDA tensor); k_pool [NP, P, KV, hd]
     (rotated at write time); v_pool [NP, P, KV, hd] or [NP, P, Rv];
-    page_table [B, MP], positions [B] int32 -> [B, H, hd] or [B, H, Rv] f32."""
+    page_table [B, MP], positions [B] int32 -> [B, H, hd] or [B, H, Rv] f32.
+    `form` (measurements only) runs a named kernel form instead of the one
+    `_dense_form` picks; the launcher refuses one the shape does not
+    allow."""
     kw = dict(scale=scale, softcap=softcap, sliding=sliding, kv_heads=kv_heads)
     if q_rot.device.type == "cuda":
-        return _launch_dense(q_rot, k_pool, v_pool, page_table, positions, **kw)
+        return _launch_dense(q_rot, k_pool, v_pool, page_table, positions, form=form, **kw)
     if q_rot.device.type == "cpu":
         return paged_dense_reference(q_rot, k_pool, v_pool, page_table,
                                      positions, **kw)
@@ -405,9 +483,10 @@ def paged_latent_decode_attention(q_rot, tk_pool, tv_pool, a_k, a_v, cos_full,
 
 
 # launches of the CUDA kernels in this process (the plain versions do not
-# count); for kernel 6 also the form of the last launch and the launches by
-# form
+# count), the form of the last launch and the launches by form
 paged_dense_decode_attention.launches = 0
+paged_dense_decode_attention.last_form = None
+paged_dense_decode_attention.form_launches = {}
 paged_latent_decode_attention.launches = 0
 paged_latent_decode_attention.last_form = None
 paged_latent_decode_attention.form_launches = {}

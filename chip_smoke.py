@@ -14,8 +14,10 @@ Phases:
            dense caches; run the CLI with a KV-cache target on the same
            checkpoint, then greedy-decode over the realized latent cache;
            run the CLI with the weight target again with int8 and with int4
-           deployed factors, each followed by greedy decode, and once with
-           AWQ int4 fake-quant (PPL only). Each run's kernel launches are
+           deployed factors, each followed by greedy decode, with the
+           KV-cache target and int8 factors at the CLI's default rank_align
+           (ranks padded to multiples of 16 at run time), followed by greedy
+           decode, and once with AWQ int4 fake-quant (PPL only). Each run's kernel launches are
            counted from 0; the kernel each run exists for must be > 0;
   serve    the paged continuous-batching engine (PagedEngine, use_pallas,
            bf16 pools, automatic page size) on the weight-target and
@@ -165,9 +167,10 @@ class Timer:
         return out
 
 
-# the tensor-core forms of kernels 1, 2, 3 and 6 (a longer name first where
-# one contains another)
-NEW_FORM_KERNELS = ("gemm_nt_i8", "gemm_nt", "paged_latent_split_kernel", "latent_split_kernel")
+# the tensor-core and TMA forms of kernels 1-6 (a longer name first where one
+# contains another)
+NEW_FORM_KERNELS = ("gemm_nt_i8", "gemm_nt_q4", "gemm_nt", "paged_latent_split_kernel",
+                    "latent_split_kernel", "paged_dense_split_kernel")
 
 
 def new_form_ptxas(build_logs):
@@ -181,9 +184,10 @@ def new_form_ptxas(build_logs):
                 mangled = ln.split("'")[1] if "'" in ln else ln
                 kernel = next((k for k in NEW_FORM_KERNELS if k in mangled), None)
                 if kernel:
-                    # integer template arguments as mangled: ILi2ELi128E... -> <2, 128>
+                    # integer and bool template arguments as mangled:
+                    # ILi2ELi128E... -> <2, 128>, ILi128ELb1E -> <128, 1>
                     args = mangled.split(kernel, 1)[1].split("Ev")[0]
-                    kernel += "<" + ", ".join(re.findall(r"Li(\d+)E", args)) + ">"
+                    kernel += "<" + ", ".join(re.findall(r"L[ib](\d+)E", args)) + ">"
                 spill = None
             elif kernel and "spill" in ln:
                 spill = ln.strip()
@@ -515,6 +519,15 @@ def q_apply(kind, x, q, bias, **kw):
     return fq.fused_lowrank_apply_q4(x, *q, bias, group=Q4_GROUP, **kw)
 
 
+def q_launch(kind, x, q, bias, form):
+    """Kernel 3 or 4 in a named form (measurements only)."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    if kind == "q8":
+        return fq._launch_q8(x, q[0], q[1].scale, q[1].zero, q[2], q[3].scale, q[3].zero,
+                             bias, form=form)
+    return fq._launch_q4(x, *q, bias, Q4_GROUP, form=form)
+
+
 def q_reference(kind, x, q, bias):
     from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
     if kind == "q8":
@@ -596,11 +609,11 @@ def phase_quant_kernels(torch, timer, record, failures):
                                  f" ({by}: {nbytes / 1e6:.1f} MB)")
                         o_ms = 0.0
                         if form == "wgmma_tiled":
-                            args = (x, q[0], q[1].scale, q[1].zero, q[2], q[3].scale,
-                                    q[3].zero, bias)
+                            # the earlier WMMA form on the same inputs, held against the
+                            # plain version, then timed in turns with the new one
                             k_ms, o_ms, text = old_form_in_turns(
                                 torch, timer, lambda: q_apply(kind, x, q, bias),
-                                lambda: fq._launch_q8(*args, form="wmma_tiled"), "wmma_tiled",
+                                lambda: q_launch(kind, x, q, bias, "wmma_tiled"), "wmma_tiled",
                                 ref, k_ms, atol, rtol, failures, f"{name} wmma_tiled M={M} {lin}")
                             line += text
                         if M == DECODE_BATCH and lin == "q_proj":
@@ -632,14 +645,77 @@ def phase_quant_kernels(torch, timer, record, failures):
                     "bound_ms": sm["bound_ms"], "bound_by": by, "library_ms": None,
                     "yardstick_ms": sm["yardstick_ms"], "kernel1_ms": sm["kernel1_ms"],
                     "shape": f"7 linears of one Llama-2-7B layer, ratio 0.9, M={M}, bf16"}
-        m1024 = q_row(1024)
-        if kind == "q8":
-            m1024.update(form="wgmma_tiled", wmma_tiled_ms=sums[1024]["old_ms"])
+        m1024 = dict(q_row(1024), form="wgmma_tiled", wmma_tiled_ms=sums[1024]["old_ms"])
         record[name] = {
             "name": name, "route": "cuda",
             "source": f"asvd4llm_tpu_torch/csrc/{name}.cu", "replaces": tpu_line,
             **q_row(DECODE_BATCH), "m1024": m1024,
         }
+        if kind == "q8":
+            record[name]["m1024_kv_target_ranks"] = q8_unaligned_ranks(torch, timer, g, failures)
+
+
+def q8_unaligned_ranks(torch, timer, g, failures):
+    """Kernel 3 at KERNEL1_KV_SHAPES (ranks as the CLI leaves them at its
+    default rank_align), bf16, M=1024: the factors quantized to int8 and
+    padded by align_ranks' pad_rank must take the wgmma form and match the
+    plain version of the unpadded leaf; the unpadded leaf (the WMMA form)
+    too. The two timed in turns beside dequantize + two matmuls and the
+    bound. -> their sums for the kernels line."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    from asvd4llm_tpu_torch.ops.lowrank import pad_rank
+    from asvd4llm_tpu_torch.ops.quant import QuantParams
+
+    M, atol, rtol = 1024, 2e-2, 2e-2
+    keys = ("wmma_tiled_ms", "padded_wgmma_tiled_ms", "yardstick_ms", "bound_ms")
+    sums = dict.fromkeys(keys, 0.0)
+    err_all = 0.0
+    counter = fq.fused_lowrank_apply_q8
+    for name, N, K, R in KERNEL1_KV_SHAPES:
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        a = (torch.randn(N, R, generator=g, device="cuda") * R ** -0.5).bfloat16()
+        b = (torch.randn(R, K, generator=g, device="cuda") * K ** -0.5).bfloat16()
+        bias = (torch.randn(N, generator=g, device="cuda") * 0.1).bfloat16()
+        q = quantize_factors(torch, "q8", a, b)
+        leaf = {"A8": q[0], "Asc": q[1].scale, "Azp": q[1].zero, "B8": q[2],
+                "Bsc": q[3].scale, "Bzp": q[3].zero, "b": bias}
+        p = pad_rank(leaf)
+        qp = (p["A8"], QuantParams(p["Asc"], p["Azp"], 255), p["B8"],
+              QuantParams(p["Bsc"], p["Bzp"], 255))
+        ref = q_reference("q8", x, q, bias)
+        runs = {"as is": lambda: q_apply("q8", x, q, bias),
+                "padded": lambda: q_apply("q8", x, qp, bias)}
+        want = {"as is": "wmma_tiled", "padded": "wgmma_tiled"}
+        line = f"  bfloat16 M={M} {name:9s} N={N} K={K} R={R} int8"
+        for label, fn in runs.items():
+            out = fn()
+            form = counter.last_form
+            torch.cuda.synchronize()
+            err = max_err(out, ref)[0]
+            ok = within(out, ref, atol, rtol) and form == want[label]
+            err_all = max(err_all, err)
+            line += (f"; rank {label} ({p['Bsc'].shape[0] if label == 'padded' else R}) "
+                     f"form={form} max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"fused_lowrank_q8 M={M} {name} R={R} {label}")
+        new_ms, old_ms, old2_ms, new2_ms = (
+            timer.ms(runs[k]) for k in ("padded", "as is", "as is", "padded"))
+        y_ms = timer.ms(lambda: q_apply("q8", x, q, bias, max_tokens=0))
+        bms, by = bound(q_bytes("q8", q, M, N, K, 2), 2 * M * R * (K + N), torch.bfloat16)
+        line += (f" | padded, wgmma_tiled {(new_ms + new2_ms) / 2 * 1e3:.1f} us, as is,"
+                 f" wmma_tiled {(old_ms + old2_ms) / 2 * 1e3:.1f} us (in turns"
+                 f" {new_ms * 1e3:.1f}/{old_ms * 1e3:.1f}/{old2_ms * 1e3:.1f}/"
+                 f"{new2_ms * 1e3:.1f} us), dequant+two matmuls {y_ms * 1e3:.1f} us, bound"
+                 f" {bms * 1e3:.1f} us ({by})")
+        for k_, v_ in zip(keys, ((old_ms + old2_ms) / 2, (new_ms + new2_ms) / 2, y_ms, bms)):
+            sums[k_] += v_
+        log(line)
+    log(f"  int8 k_proj + v_proj at the KV-target ranks, M=1024 bf16: padded (wgmma_tiled) "
+        f"{sums['padded_wgmma_tiled_ms'] * 1e3:.1f} us, as is (wmma_tiled) "
+        f"{sums['wmma_tiled_ms'] * 1e3:.1f} us, dequant+two matmuls "
+        f"{sums['yardstick_ms'] * 1e3:.1f} us, bound {sums['bound_ms'] * 1e3:.1f} us")
+    return dict(sums, max_abs_err=err_all,
+                shape="int8 k_proj R=819 + v_proj R=409 of Llama-2-7B, M=1024, bf16")
 
 
 def _dequantized(kind, q, K):
@@ -675,7 +751,7 @@ def kernel_counts():
 
 
 def form_counts():
-    """Launches by form of the kernels that have several (1, 2, 3 and 6)."""
+    """Launches by form of each kernel (each has several)."""
     return {name: dict(fn.form_launches) for name, fn in _counted().items()
             if hasattr(fn, "form_launches")}
 
@@ -785,7 +861,8 @@ def phase_paged_kernels(torch, timer, record, failures):
     """Kernels 5 and 6 at Llama-2-7B width (H=32, hd=128, page 256) on a
     shuffled pool of 64 pages with ragged positions, each against its plain
     version in f32 and bf16; in bf16 the main cases are timed beside their
-    bound, their plain version and a gather + SDPA yardstick."""
+    bound, their plain version and a gather + SDPA yardstick, the split
+    forms in turns with the tile32 form they replace."""
     from asvd4llm_tpu_torch.models.decoder import rope_cos_sin
     from asvd4llm_tpu_torch.ops import paged_attention as pa
 
@@ -813,7 +890,8 @@ def phase_paged_kernels(torch, timer, record, failures):
                                                   a_k, cos, sin)
             kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
             out = core(*args, **kw)
-            form = pa.paged_latent_decode_attention.last_form if kind == "latent" else None
+            form = (pa.paged_latent_decode_attention if kind == "latent"
+                    else pa.paged_dense_decode_attention).last_form
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
             err, med_rel = max_err(out, ref)
@@ -832,7 +910,7 @@ def phase_paged_kernels(torch, timer, record, failures):
                 bms, by = bound(nbytes, flops, dtype)
                 k_ms = timer.ms(lambda: core(*args, **kw))
                 extra = {}
-                if form == "split_wgmma":
+                if form in ("split_wgmma", "split_tma"):
                     k_ms, extra["tile32_ms"], text = old_form_in_turns(
                         torch, timer, lambda: core(*args, **kw),
                         lambda: core(*args, form="tile32", **kw), "tile32", ref, k_ms, atol,
@@ -858,8 +936,8 @@ def phase_paged_kernels(torch, timer, record, failures):
         "name": "paged_dense_attention", "route": "cuda",
         "source": "asvd4llm_tpu_torch/csrc/paged_dense_attention.cu",
         "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:405",
-        **mains["dense"], "shape": shape + ", dense V",
-        "vlatent": dict(mains["vlatent"], shape=shape + ", V-latent Rv=1024"),
+        **mains["dense"], "shape": shape + ", dense V, form split_tma",
+        "vlatent": dict(mains["vlatent"], shape=shape + ", V-latent Rv=1024, form split_tma"),
     }
     record["paged_latent_attention"] = {
         "name": "paged_latent_attention", "route": "cuda",
@@ -1096,13 +1174,17 @@ def decode_breakdown(torch, run, steps):
 
 
 WEIGHT_TARGET = ["--param_ratio_target", "0.9", "--rank_align", "128"]
+KV_TARGET = ["--compress_kv_cache", "--kv_cache_ratio_target", "0.5"]  # rank_align 1
 # (run, what it adds to the CLI, cache mode of its decode or None for a
 # PPL-only run, the kernel the run must launch)
 MAIN_RUNS = [
     ("weight target", WEIGHT_TARGET, False, "fused_lowrank"),
-    ("KV-cache target", ["--compress_kv_cache", "--kv_cache_ratio_target", "0.5"], True,
-     "latent_attention"),
+    ("KV-cache target", KV_TARGET, True, "latent_attention"),
     ("int8 factors", WEIGHT_TARGET + ["--deploy_int8_factors"], False, "fused_lowrank_q8"),
+    # k/v at ranks 819/409, which align_ranks pads to 832/416 in evaluate
+    # and generate
+    ("int8 factors, default rank_align", KV_TARGET + ["--deploy_int8_factors"], False,
+     "fused_lowrank_q8"),
     ("int4 factors", WEIGHT_TARGET + ["--deploy_int4_factors", "--int4_group_size",
                                       str(Q4_GROUP)], False, "fused_lowrank_q4"),
     ("AWQ int4 fake-quant", WEIGHT_TARGET + ["--weight_quant", "awq_int4"], None, None),
@@ -1132,6 +1214,8 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
         counts, forms = kernel_counts(), form_counts()
         log(f"  kernel launches in this run: {counts}; by form: {forms}")
         check_forms(run, MAIN_FORMS.get(run, {}), forms)
+        if run in UNALIGNED_Q8_RUNS:
+            check_unaligned_q8(run, out)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         counts_by_run[run] = counts
@@ -1144,14 +1228,32 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
 
 
 # the tensor-core form each run's kernel-path work must take: the PPL eval
-# at M=1024 (kernel 1, and kernel 3 in the int8 run) and, in the KV-target
-# run, the latent decode (its ranks padded); none of these kernels may run
-# an earlier form (OLD_FORMS) in the run
+# at M=1024 (kernel 1, kernel 3 in the int8 runs, kernel 4 in the int4 run)
+# and, in the KV-target run, the latent decode (its ranks padded); none of
+# these kernels may run an earlier form (OLD_FORMS) in the run
 MAIN_FORMS = {"weight target": {"fused_lowrank": "wgmma_tiled"},
               "KV-cache target": {"fused_lowrank": "wgmma_tiled",
                                   "latent_attention": "split_wgmma"},
-              "int8 factors": {"fused_lowrank_q8": "wgmma_tiled"}}
+              "int8 factors": {"fused_lowrank_q8": "wgmma_tiled"},
+              "int8 factors, default rank_align": {"fused_lowrank_q8": "wgmma_tiled"},
+              "int4 factors": {"fused_lowrank_q4": "wgmma_tiled"}}
 OLD_FORMS = ("wmma_tiled", "tile32", "cuda_cores")
+# runs whose int8 leaves come out of the search at ranks that are not
+# multiples of 16, so that only align_ranks in evaluate and generate (and
+# not the search) sends their M=1024 calls to wgmma_tiled
+UNALIGNED_Q8_RUNS = ("int8 factors, default rank_align",)
+
+
+def check_unaligned_q8(run, out):
+    """The run's int8 leaves keep their true ranks, and some are not
+    multiples of 16."""
+    from asvd4llm_tpu_torch.models.registry import is_q8_lowrank, iter_linears
+    ranks = {name: leaf["Bsc"].shape[0] for name, leaf in
+             iter_linears(out["params"], out["spec"], include_extras=True)
+             if is_q8_lowrank(leaf)}
+    log(f"  int8 ranks as the search left them: {ranks}")
+    if not any(r % 16 for r in ranks.values()):
+        raise AssertionError(f"{run}: no int8 leaf has a rank to pad ({ranks})")
 
 
 def check_forms(run, want, forms):
@@ -1180,8 +1282,16 @@ SERVE_RUNS = [
      "paged_latent_attention"),
     ('latent="auto"', "KV-cache target", "auto", None, {}, 1, None),
 ]
-# the form a serve run's kernel must take alone (checked as MAIN_FORMS)
-SERVE_FORMS = {'latent="kv", run(chunk=8)': {"paged_latent_attention": "split_wgmma"}}
+# the form a serve run's kernels must take alone (checked as MAIN_FORMS):
+# every bf16 serve run launches kernel 5 (dense V, or V-latent in "v") only
+# as split_tma, and the "kv" run kernel 6 only as split_wgmma
+SERVE_FORMS = {
+    "dense pools": {"paged_dense_attention": "split_tma"},
+    'latent="v", chunked prefill + prefix cache': {"paged_dense_attention": "split_tma"},
+    'latent="kv", run(chunk=8)': {"paged_dense_attention": "split_tma",
+                                  "paged_latent_attention": "split_wgmma"},
+    'latent="auto"': {"paged_dense_attention": "split_tma"},
+}
 
 
 def serve_traffic(vocab):
@@ -1229,6 +1339,8 @@ def paged_kernels_at_path_shapes(torch, params, spec, eng):
                   sliding=spec.sliding_window if spec.layer_uses_sliding(i) else 0,
                   kv_heads=KV)
         out = core(*args, **kw)
+        form = (pa.paged_latent_decode_attention if kind == "latent"
+                else pa.paged_dense_decode_attention).last_form
         ref = plain(*args, **kw)
         _sync(torch, eng.device)
         err, _ = max_err(out, ref)
@@ -1236,8 +1348,8 @@ def paged_kernels_at_path_shapes(torch, params, spec, eng):
         widths = {k: tuple(v.shape) for k, v in pools.items()}
         log(f"  {'paged_latent' if kind == 'latent' else 'paged_dense'}_attention at layer "
             f"{i} ({kind}, pools {widths}, page table {tuple(pt.shape)}, positions "
-            f"{eng.positions.tolist()}): max_abs_err {err:.3e} tol=atol 0.01 + rtol 0.01 "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{eng.positions.tolist()}, form {form}): max_abs_err {err:.3e} tol=atol 0.01 + "
+            f"rtol 0.01 {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the paged {kind} kernel disagrees with its plain version "
                                  f"at layer {i}")

@@ -435,7 +435,7 @@ def test_quantized_kernels_raise_instead_of_falling_back(cuda, monkeypatch):
     # comes back as an error, not as a silent fallback
     with pytest.raises(RuntimeError, match="launch failed"):
         fq._launch("fused_lowrank_q4", xq4, (xq4, *q[3:], *q[:3], None),
-                   (40, 64, 100, 512, 48, 128), 48, 100)
+                   (40, 64, 100, 512, 48, 128, 0), 48, 100)
 
     def broken(name):
         raise RuntimeError(f"nvcc failed for {name}.cu")
@@ -625,6 +625,84 @@ def test_fused_q8_wgmma_form_edges(cuda, M, K, N, R, bias, pad):
         torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
 
 
+# Kernel 4's tiled form at its edges (bf16): the smallest tiled M, one and
+# two row tiles, the PPL eval's M = 1024 at Llama-2-7B linears, K short of
+# its 512 padding, groups 64 and 128, bias on and off; each also in the
+# WMMA form on the same inputs.
+Q4_WGMMA_SHAPES = [  # (M, K, N, R)
+    (17, 512, 130, 100), (64, 1000, 136, 600), (129, 1024, 520, 512),
+    (1024, 4096, 4096, 1920), (1024, 4096, 11008, 2688), (1024, 11008, 4096, 2688),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,R", Q4_WGMMA_SHAPES)
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_q4_wgmma_form_edges(cuda, M, K, N, R, group, bias):
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    rng = np.random.RandomState(M + N + R + group)
+    x, q, bv = _q4_inputs(rng, cuda, torch.bfloat16, M, K, N, R, bias, group, False)
+    ref = fq.fused_lowrank_q4_reference(x, *q, bv, group=group).float()
+    assert fq._form_q4(M, K, torch.bfloat16) == "wgmma_tiled"
+    counter = fq.fused_lowrank_apply_q4
+    tol = TOL["bfloat16"]
+    for form in (None, "wmma_tiled"):
+        n0 = counter.launches
+        out = fq._launch_q4(x, *q, bv, group, form=form)
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + 1 and counter.last_form == (form or "wgmma_tiled")
+        assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+        torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+
+
+# Kernel 5's split form at its edges (bf16): page sizes 8 to 512 (boxes of
+# 8..32 rows, or 64-row boxes inside a page), positions on chunk and page
+# boundaries, an idle slot, shuffled pages, MHA and GQA (V-latent head blocks
+# of several groups, and of one group wider than 8 heads), head dim 64,
+# sliding windows and softcap, both variants. Each case runs both forms on
+# the same inputs: split_tma as `_dense_form` picks it, tile32 when named.
+PAGED_DENSE_SPLIT_CASES = {
+    # name: (P, KV, rep, hd, Rv (0: dense V), softcap, sliding)
+    "p8_mha_dense": (8, 8, 1, 128, 0, 0.0, 0),
+    "p8_mha_vlatent_r416": (8, 16, 1, 128, 416, 0.0, 0),
+    "p16_gqa4_hd64_dense_sliding": (16, 2, 4, 64, 0, 0.0, 100),
+    "p32_gqa4_vlatent_softcap": (32, 4, 4, 128, 1024, 30.0, 0),
+    "p64_gqa16_dense": (64, 2, 16, 128, 0, 0.0, 0),
+    "p64_rep16_vlatent_hd64": (64, 2, 16, 64, 200, 0.0, 0),
+    "p256_mha_dense_softcap": (256, 8, 1, 128, 0, 20.0, 0),
+    "p256_mha_vlatent_sliding": (256, 8, 1, 128, 1024, 0.0, 300),
+    "p512_gqa2_vlatent_hd64": (512, 4, 2, 64, 72, 0.0, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["split_tma", "tile32"])
+@pytest.mark.parametrize("case", sorted(PAGED_DENSE_SPLIT_CASES))
+def test_paged_dense_split_form_edges(cuda, case, form):
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    P, KV, rep, hd, Rv, cap, sw = PAGED_DENSE_SPLIT_CASES[case]
+    rng = np.random.RandomState(P + Rv + rep)
+    d = _paged_case_inputs(rng, cuda, torch.bfloat16, 7, KV, rep, hd, P, 0, Rv)
+    mp = d["pt"].shape[1]
+    # rows at the last key, idle (page table all 0, position 0), the end and
+    # start of a 64-key chunk, of a page, inside the second page
+    positions = [mp * P - 1, 0, 63, 64, P - 1, P, P + 3]
+    d["positions"] = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    v = d["tv_pool"] if Rv else d["v_pool"]
+    args = (d["q"], d["k_pool"], v, d["pt"], d["positions"])
+    kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
+    assert pa._dense_form(torch.bfloat16, hd, Rv or hd, P) == "split_tma"
+    counter = pa.paged_dense_decode_attention
+    n0 = counter.launches
+    out = pa._paged_dense_core(*args, form=None if form == "split_tma" else form, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1 and counter.last_form == form
+    assert out.shape == (7, KV * rep, Rv or hd) and bool(torch.isfinite(out).all())
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(out, pa.paged_dense_reference(*args, **kw), atol=tol, rtol=tol)
+
+
 @pytest.mark.gpu
 def test_new_forms_refuse_shapes_they_do_not_take(cuda):
     """A form named for a shape it does not take raises from the launcher:
@@ -641,6 +719,15 @@ def test_new_forms_refuse_shapes_they_do_not_take(cuda):
     x, a8, aq, b8, bq, bv = _q8_inputs(rng, cuda, torch.float32, 40, 256, 48, 64, True, False)
     with pytest.raises(RuntimeError, match="launch failed"):   # f32
         fq._launch_q8(x, a8, aq.scale, aq.zero, b8, bq.scale, bq.zero, bv, form="wgmma_tiled")
+    for dt, M in ((torch.float32, 40), (torch.bfloat16, 4)):   # f32; a decode M
+        x4, q, bv4 = _q4_inputs(rng, cuda, dt, M, 512, 48, 100, True, 128, False)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fq._launch_q4(x4, *q, bv4, 128, form="wgmma_tiled")
+    for dt, P in ((torch.float32, 16), (torch.bfloat16, 24)):  # f32; a page of 24 rows
+        d = _paged_case_inputs(rng, cuda, dt, 2, 2, 2, 64, P, 0, 64)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pa._paged_dense_core(d["q"], d["k_pool"], d["tv_pool"], d["pt"], d["positions"],
+                                 form="split_tma", **kw)
 
 
 @pytest.mark.gpu
