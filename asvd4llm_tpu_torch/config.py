@@ -82,7 +82,7 @@ class ASVDConfig:
     # options. Kept so that the flags and the cache-key hashes match; the
     # port's scan is serial whatever sensitivity_batch_ratios says, and
     # pipeline.py raises for a mesh above one device or any residency
-    # setting (ROADMAP queues 1 and 3).
+    # setting (ROADMAP queue 1, items 5, 7 and 8).
     sensitivity_batch_ratios: bool = True
     mesh_shape: tuple = (1, 1)
     scan_resume_path: str = ""

@@ -31,9 +31,12 @@
 //     stages have 120 tiles of 128 x 128 and 128 of 128 x 256 for 132 SMs.
 //   * The split-K forms, for everything else, in two NT products
 //     C[M, N] += X[M, K] · W[N, K]ᵀ split over K across the grid, the
-//     partial sums meeting with f32 atomicAdd in one zeroed f32 scratch
-//     (t, then y), and a last small launch adding the bias and rounding;
-//     stage 2 reads the f32 t and rounds it to A's type as it loads it:
+//     partial sums meeting in one zeroed scratch of 64-bit fixed-point
+//     accumulators (lrq::Acc: integer atomics, so the sums do not depend on
+//     the order the blocks finish in and a decode is reproducible bit for
+//     bit), t, then y, and a last small launch adding the bias and
+//     rounding; stage 2 reads t's accumulators and rounds each to A's type
+//     as it loads it:
 //     - "mma_skinny" (bf16, M <= 16, aligned): mma.sync m16n8k16 with the
 //       operands swapped, so 16 rows of W fill the MMA's 16-row side and
 //       the few rows of X its 8-wide side. Each lane loads 16 bytes of two
@@ -63,6 +66,8 @@
 
 namespace {
 
+using lrq::Acc;
+using lrq::acc_add;
 using lrq::aligned16;
 using lrq::cdiv;
 using lrq::from_f32;
@@ -92,6 +97,17 @@ __device__ __forceinline__ uint4 load8_bf16(const float* p) {
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
                     pack_bf16(b.z, b.w));
 }
+__device__ __forceinline__ uint4 load8_bf16(const Acc* p) {
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const ulonglong2 a = reinterpret_cast<const ulonglong2*>(p)[i];
+    v[2 * i] = lrq::acc_value(a.x);
+    v[2 * i + 1] = lrq::acc_value(a.y);
+  }
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
+}
 
 constexpr int kSkinnyWarps = 4;                 // each warp owns 16 rows of W
 constexpr int kSkinnyRows = kSkinnyWarps * 16;  // W rows per block
@@ -112,7 +128,7 @@ constexpr int kSkinnyLd = kSkinnySub + 32;      // xs row stride: 576 bytes, so 
 template <typename TX>
 __global__ void __launch_bounds__(kSkinnyWarps * 32)
 mma_skinny(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
-           float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+           Acc* __restrict__ acc, int M, int N, int K, int k_chunk) {
   __shared__ __align__(16) __nv_bfloat16 xs[16 * kSkinnyLd];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -161,7 +177,7 @@ mma_skinny(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
     for (int j = 0; j < 4; ++j) {
       const int n = row + (j >= 2 ? 8 : 0);
       const int m = mt * 8 + 2 * t + (j & 1);
-      if (mt < m_tiles && m < M && n < N) atomicAdd(&acc[(size_t)m * N + n], c[mt][j]);
+      if (mt < m_tiles && m < M && n < N) acc_add(&acc[(size_t)m * N + n], c[mt][j]);
     }
 }
 
@@ -176,7 +192,7 @@ constexpr int kTileCLd = kTile + 4;   // f32 epilogue row stride
 template <typename TX>
 __global__ void __launch_bounds__(128)
 wmma_tiled(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
-           float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+           Acc* __restrict__ acc, int M, int N, int K, int k_chunk) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 xs[kTile * kTileLd];
   __shared__ __align__(32) __nv_bfloat16 ws[kTile * kTileLd];
@@ -230,7 +246,7 @@ wmma_tiled(const TX* __restrict__ X, const __nv_bfloat16* __restrict__ W,
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
     const int r = i / kTile, col = i % kTile;
     if (m0 + r < M && n0 + col < N)
-      atomicAdd(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
+      acc_add(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
   }
 }
 
@@ -245,7 +261,7 @@ constexpr int kBN = 64;        // output columns per block
 template <typename TX, typename TW, int BM>
 __global__ void __launch_bounds__(kThreads)
 nt_gemm_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
-               float* __restrict__ acc, int M, int N, int K, int k_chunk) {
+               Acc* __restrict__ acc, int M, int N, int K, int k_chunk) {
   constexpr int TM = BM / 16;
   constexpr int TN = kBN / 16;
   __shared__ float xs[kBK][BM + 1];
@@ -299,7 +315,7 @@ nt_gemm_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) atomicAdd(&acc[(size_t)m * N + n], c[i][j]);
+      if (n < N) acc_add(&acc[(size_t)m * N + n], c[i][j]);
     }
   }
 }
@@ -308,7 +324,7 @@ nt_gemm_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
 // streams kGemvRows rows of W at once with VEC-wide loads (16 bytes a lane
 // where the layout allows), so every X value read from shared memory serves
 // kGemvRows rows. Lane partial sums meet in a warp reduction and one
-// atomicAdd per (m, n).
+// accumulator add per (m, n).
 constexpr int kGemvWarps = 8;
 constexpr int kGemvRows = 4;                       // W rows per warp pass
 constexpr int kGemvBlockRows = kGemvWarps * kGemvRows;
@@ -337,7 +353,7 @@ template <typename T> struct Slot<1, T> {
 template <typename TX, typename TW, int MM, int VEC>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
-            float* __restrict__ acc, int M, int N, int K) {
+            Acc* __restrict__ acc, int M, int N, int K) {
   constexpr int IT = kGemvChunk / (32 * VEC);  // lane passes over a chunk
   __shared__ float xs[MM * kGemvChunk];
   const int k0 = blockIdx.y * kGemvChunk;
@@ -394,7 +410,7 @@ gemv_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
     for (int m = 0; m < MM; ++m) {
       if (m < M && n0 + r < N) {
         const float v = warp_sum(s[r][m]);
-        if (lane == 0) atomicAdd(&acc[(size_t)m * N + n0 + r], v);
+        if (lane == 0) acc_add(&acc[(size_t)m * N + n0 + r], v);
       }
     }
 }
@@ -402,14 +418,14 @@ gemv_splitk(const TX* __restrict__ X, const TW* __restrict__ W,
 // ---------------------------------------------------------------- launches
 
 template <typename TX, typename TW, int MM, int VEC>
-void launch_gemv_mm(const TX* X, const TW* W, float* acc, int M, int N, int K,
+void launch_gemv_mm(const TX* X, const TW* W, Acc* acc, int M, int N, int K,
                     cudaStream_t stream) {
   const dim3 grid(cdiv(N, kGemvBlockRows), cdiv(K, kGemvChunk));
   gemv_splitk<TX, TW, MM, VEC><<<grid, kGemvWarps * 32, 0, stream>>>(X, W, acc, M, N, K);
 }
 
 template <typename TX, typename TW, int VEC>
-void launch_gemv(const TX* X, const TW* W, float* acc, int M, int N, int K,
+void launch_gemv(const TX* X, const TW* W, Acc* acc, int M, int N, int K,
                  cudaStream_t stream) {
   if (M <= 1) launch_gemv_mm<TX, TW, 1, VEC>(X, W, acc, M, N, K, stream);
   else if (M <= 2) launch_gemv_mm<TX, TW, 2, VEC>(X, W, acc, M, N, K, stream);
@@ -420,7 +436,7 @@ void launch_gemv(const TX* X, const TW* W, float* acc, int M, int N, int K,
 
 // acc[M, N] += X · Wᵀ on the CUDA cores (f32 W).
 template <typename TX>
-void launch_nt(const TX* X, const float* W, float* acc, int M, int N, int K,
+void launch_nt(const TX* X, const float* W, Acc* acc, int M, int N, int K,
                cudaStream_t stream) {
   if (M <= kGemvMaxM) {
     if (K % 4 == 0 && aligned16(W)) launch_gemv<TX, float, 4>(X, W, acc, M, N, K, stream);
@@ -436,7 +452,7 @@ void launch_nt(const TX* X, const float* W, float* acc, int M, int N, int K,
 // acc[M, N] += X · Wᵀ for bf16 W: on the tensor cores where every row of X
 // and W starts 16-byte aligned, on the CUDA cores otherwise.
 template <typename TX>
-void launch_nt(const TX* X, const __nv_bfloat16* W, float* acc, int M, int N, int K,
+void launch_nt(const TX* X, const __nv_bfloat16* W, Acc* acc, int M, int N, int K,
                cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   if (K % 8 != 0 || !aligned16(W) || !aligned16(X)) {
@@ -466,12 +482,12 @@ void launch_nt(const TX* X, const __nv_bfloat16* W, float* acc, int M, int N, in
 template <typename T>
 int run(const T* x, const T* b, const T* a, const T* bias, T* y, float* scratch, int M,
         int K, int R, int N, cudaStream_t stream) {
-  float* t = scratch;                      // [M, R]
-  float* y_acc = scratch + (size_t)M * R;  // [M, N]
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)M * (R + N), stream);
+  Acc* t = reinterpret_cast<Acc*>(scratch);  // [M, R]
+  Acc* y_acc = t + (size_t)M * R;            // [M, N]
+  cudaError_t err = cudaMemsetAsync(t, 0, sizeof(Acc) * (size_t)M * (R + N), stream);
   if (err != cudaSuccess) return (int)err;
-  launch_nt<T>(x, b, t, M, R, K, stream);          // t = x · Bᵀ
-  launch_nt<float>(t, a, y_acc, M, N, R, stream);  // y = T(t) · Aᵀ
+  launch_nt<T>(x, b, t, M, R, K, stream);        // t = x · Bᵀ
+  launch_nt<Acc>(t, a, y_acc, M, N, R, stream);  // y = T(t) · Aᵀ
   const size_t total = (size_t)M * N;
   lrq::finalize_bias<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(y_acc, bias, y,
                                                                             M, N);
@@ -495,7 +511,8 @@ int run_sm90(const __nv_bfloat16* x, const __nv_bfloat16* b, const __nv_bfloat16
 
 // dtype: 0 = float32, 1 = bfloat16. x [M,K], b [R,K], a [N,R], bias [N] or
 // null, y [M,N] of the io type. form: 0 = the split-K forms (scratch holds
-// M·(R+N) f32 values), 1 = the wgmma form (bf16 only; scratch holds the
+// M·(R+N) 64-bit accumulators, 2·M·(R+N) f32 values, 16-byte aligned), 1 =
+// the wgmma form (bf16 only; scratch holds the
 // bf16 t [M, R]). Returns cudaGetLastError() after the launches (0 =
 // success), cudaErrorInvalidValue for a form the shape does not allow.
 extern "C" int fused_lowrank_launch(const void* x, const void* b, const void* a,

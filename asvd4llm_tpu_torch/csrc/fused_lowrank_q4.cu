@@ -49,7 +49,9 @@
 //     stage. The epilogue adds the bias in f32 and rounds once. No memset,
 //     atomics or finishing launches: t leaves stage 1 as bf16.
 //   * The split-K forms (the first design), for everything else, summing
-//     in an f32 scratch that `round_t` and `finalize_bias` finish:
+//     in a scratch of fixed-point accumulators (lrq::Acc: integer atomics,
+//     the same bits whatever order the blocks finish in) that `round_t` and
+//     `finalize_bias` finish:
 //     - "mma_skinny" (bf16, M <= 16, `skinny_q4`): mma.sync m16n8k16 with the
 //       operands swapped, one 512-column tile per pass (256 packed bytes a
 //       row), X staged in shared memory; each 16-byte load feeds eight
@@ -110,7 +112,7 @@ __device__ __forceinline__ void q4x16_to_bf16(const uint4& v, float s_lo, float 
 // nibbles are tile columns 64i+16t.., its high nibbles the same + 256; each
 // set of 16 feeds four MMAs exactly as the int8 kernel's 16 codes do.
 __global__ void __launch_bounds__(kSkinnyWarps * 32)
-skinny_q4(const bf16* __restrict__ X, int Kx, Q4 W, float* __restrict__ acc, int M, int N,
+skinny_q4(const bf16* __restrict__ X, int Kx, Q4 W, Acc* __restrict__ acc, int M, int N,
           int P, int p_chunk, bool xvec) {
   __shared__ __align__(16) bf16 xs[16 * kSkinnyLd];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -181,7 +183,7 @@ skinny_q4(const bf16* __restrict__ X, int Kx, Q4 W, float* __restrict__ acc, int
 // j < 32 is logical column kbase + (p0 % 256) + j, column 32 + j is that
 // + 256, for W and X alike.
 __global__ void __launch_bounds__(128)
-tiled_q4(const bf16* __restrict__ X, int Kx, Q4 W, float* __restrict__ acc, int M, int N,
+tiled_q4(const bf16* __restrict__ X, int Kx, Q4 W, Acc* __restrict__ acc, int M, int N,
          int P, int p_chunk, bool xvec) {
   using namespace nvcuda;
   __shared__ __align__(32) bf16 xs[kTile * kTileLd];
@@ -251,20 +253,20 @@ tiled_q4(const bf16* __restrict__ X, int Kx, Q4 W, float* __restrict__ acc, int 
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
     const int r = i / kTile, col = i % kTile;
     if (m0 + r < M && n0 + col < N)
-      atomicAdd(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
+      acc_add(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
   }
 }
 
 // t = round(acc) to T.
 template <typename T>
-__global__ void round_t(const float* __restrict__ acc, T* __restrict__ t, size_t n) {
+__global__ void round_t(const Acc* __restrict__ acc, T* __restrict__ t, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) t[i] = from_f32<T>(acc[i]);
+  if (i < n) t[i] = from_f32<T>(acc_value(acc[i]));
 }
 
 // acc[M, N] += X[M, Kx] · dq(W)[N, 2P]ᵀ.
 template <typename T>
-void launch_nt(const T* X, int Kx, const Q4& W, float* acc, int M, int N, int P,
+void launch_nt(const T* X, int Kx, const Q4& W, Acc* acc, int M, int N, int P,
                cudaStream_t s) {
   if (sizeof(T) != 2 || !aligned16(W.w) || W.ld % 16 != 0) {
     launch_cuda_cores<T>(X, Kx, DecQ4{W.w, W.sc, W.zs, W.ld, W.ngrp, W.group}, acc, M, N,
@@ -289,9 +291,9 @@ void launch_nt(const T* X, int Kx, const Q4& W, float* acc, int M, int N, int P,
 template <typename T>
 int run(const T* x, const Q4& B, const Q4& A, const T* bias, T* y, float* scratch, T* t, int M,
         int K, int Rp, int Kp, int N, cudaStream_t s) {
-  float* t_acc = scratch;                  // [M, Rp]
-  float* y_acc = t_acc + (size_t)M * Rp;   // [M, N]
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)M * (Rp + N), s);
+  Acc* t_acc = reinterpret_cast<Acc*>(scratch);  // [M, Rp]
+  Acc* y_acc = t_acc + (size_t)M * Rp;   // [M, N]
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(Acc) * (size_t)M * (Rp + N), s);
   if (err != cudaSuccess) return (int)err;
   launch_nt<T>(x, K, B, t_acc, M, Rp, Kp / 2, s);       // acc = x · dq(B4)ᵀ
   const size_t nt = (size_t)M * Rp;
@@ -445,8 +447,7 @@ template <int NC, int BN>
 cudaError_t launch_q4_tile(const CUtensorMap& mx, const CUtensorMap& mw, bf16* out, const Q4& W,
                            const bf16* bias, int M, int N, cudaStream_t stream) {
   const size_t bytes = q4_smem_bytes(64 * NC, BN);
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_q4<NC, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err = sm90::allow_smem(gemm_nt_q4<NC, BN>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN);
   gemm_nt_q4<NC, BN><<<grid, NC * 128 + 32, bytes, stream>>>(mx, mw, out, W.sc, W.zs, bias, M,
@@ -501,7 +502,8 @@ int run_sm90(const bf16* x, const Q4& B, const Q4& A, const bf16* bias, bf16* y,
 // packed codes, N rows of Rp/2 bytes, with asc/azs [N, Rp/group] f32; bias
 // [N] of the io type or null; Rp and Kp multiples of 512; group a multiple
 // of 16 dividing 256. t holds M·Rp values of the io type. form: 0 = the
-// split-K forms (scratch holds M·(Rp+N) f32 values, zeroed here), 1 = the
+// split-K forms (scratch holds M·(Rp+N) 64-bit accumulators, 2·M·(Rp+N)
+// f32 values, zeroed here), 1 = the
 // wgmma form (bf16 only; scratch unused). Returns cudaGetLastError() after
 // the launches (0 = success), cudaErrorInvalidValue for a form the shape
 // does not allow.

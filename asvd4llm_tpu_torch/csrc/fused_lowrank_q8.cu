@@ -41,9 +41,11 @@
 //     tensor cores as bf16, where they are exact.
 //   * The split-K forms, for everything else: kernel 1's earlier design
 //     (fused_lowrank.cu) with the dequantization moved out of the products.
-//     Split-K partial sums meet with f32 atomicAdd in a zeroed scratch, so
-//     the B correction and the rounding of t cannot happen per split: they
-//     run in a small launch (`finish_t`) that reads the finished f32 sums,
+//     Split-K partial sums meet in a zeroed scratch of fixed-point
+//     accumulators (lrq::Acc: integer atomics, the same bits whatever order
+//     the blocks finish in), so the B correction and the rounding of t
+//     cannot happen per split: they run in a small launch (`finish_t`) that
+//     reads the finished sums,
 //     writes the rounded t and its row sums. rowsum(x) is its own small
 //     launch over all of K. Both spread each row over many blocks. The A
 //     correction and the bias run in the finishing launch. The products:
@@ -87,7 +89,7 @@ using namespace lrq;
 // physical columns of X, so both operands see one permutation of k.
 __global__ void __launch_bounds__(kSkinnyWarps * 32)
 skinny_i8(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
-          float* __restrict__ acc, int M, int N, int K, int k_chunk, bool xvec) {
+          Acc* __restrict__ acc, int M, int N, int K, int k_chunk, bool xvec) {
   __shared__ __align__(16) bf16 xs[16 * kSkinnyLd];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -146,7 +148,7 @@ skinny_i8(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
 // computing rows 32·(w/2).. and columns 32·(w%2).. as 2 x 2 WMMA fragments.
 __global__ void __launch_bounds__(128)
 wmma_tiled(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
-         float* __restrict__ acc, int M, int N, int K, int k_chunk, bool xvec) {
+         Acc* __restrict__ acc, int M, int N, int K, int k_chunk, bool xvec) {
   using namespace nvcuda;
   __shared__ __align__(32) bf16 xs[kTile * kTileLd];
   __shared__ __align__(32) bf16 ws[kTile * kTileLd];
@@ -209,7 +211,7 @@ wmma_tiled(const bf16* __restrict__ X, const int8_t* __restrict__ W, int ldw,
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
     const int r = i / kTile, col = i % kTile;
     if (m0 + r < M && n0 + col < N)
-      atomicAdd(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
+      acc_add(&acc[(size_t)(m0 + r) * N + n0 + col], cs[r * kTileCLd + col]);
   }
 }
 
@@ -222,7 +224,7 @@ constexpr int kSumPerThread = 8;
 // sums[m] += Σ_k x[m, k] in f32 over this block's chunk of K (sums zeroed).
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-row_sums(const T* __restrict__ x, float* __restrict__ sums, int K) {
+row_sums(const T* __restrict__ x, Acc* __restrict__ sums, int K) {
   const T* row = x + (size_t)blockIdx.y * K;
   const int k0 = blockIdx.x * kSumThreads * kSumPerThread + threadIdx.x;
   float v = 0.f;
@@ -232,44 +234,44 @@ row_sums(const T* __restrict__ x, float* __restrict__ sums, int K) {
     if (k < K) v += to_f32(row[k]);
   }
   v = block_sum(v);
-  if (threadIdx.x == 0) atomicAdd(&sums[blockIdx.y], v);
+  if (threadIdx.x == 0) acc_add(&sums[blockIdx.y], v);
 }
 
 // t = bsc·acc − (bsc·bzp)·xsum, rounded once to T, for one r per thread;
 // tsum[m] += Σ_r t over the block (tsum zeroed).
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-finish_t(const float* __restrict__ acc, const float* __restrict__ xsum,
+finish_t(const Acc* __restrict__ acc, const Acc* __restrict__ xsum,
          const float* __restrict__ bsc, const float* __restrict__ bzp, T* __restrict__ t,
-         float* __restrict__ tsum, int R) {
+         Acc* __restrict__ tsum, int R) {
   const int m = blockIdx.y, r = blockIdx.x * kSumThreads + threadIdx.x;
   float v = 0.f;
   if (r < R) {
     const size_t i = (size_t)m * R + r;
-    const T q = from_f32<T>(acc[i] * bsc[r] - xsum[m] * (bsc[r] * bzp[r]));
+    const T q = from_f32<T>(acc_value(acc[i]) * bsc[r] - acc_value(xsum[m]) * (bsc[r] * bzp[r]));
     t[i] = q;
     v = to_f32(q);
   }
   v = block_sum(v);
-  if (threadIdx.x == 0) atomicAdd(&tsum[m], v);
+  if (threadIdx.x == 0) acc_add(&tsum[m], v);
 }
 
 // y = round(asc·acc − (asc·azp)·tsum + bias); bias may be null.
 template <typename T>
-__global__ void finish_y(const float* __restrict__ acc, const float* __restrict__ tsum,
+__global__ void finish_y(const Acc* __restrict__ acc, const Acc* __restrict__ tsum,
                          const float* __restrict__ asc, const float* __restrict__ azp,
                          const T* __restrict__ bias, T* __restrict__ y, int M, int N) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
   const int m = (int)(i / N), n = (int)(i % N);
-  float v = acc[i] * asc[n] - tsum[m] * (asc[n] * azp[n]);
+  float v = acc_value(acc[i]) * asc[n] - acc_value(tsum[m]) * (asc[n] * azp[n]);
   if (bias != nullptr) v += to_f32(bias[n]);
   y[i] = from_f32<T>(v);
 }
 
 // acc[M, N] += X[M, K] · W8[N, K]ᵀ (raw codes, W8 rows `ldw` apart).
 template <typename T>
-void launch_nt(const T* X, const int8_t* W, int ldw, float* acc, int M, int N, int K,
+void launch_nt(const T* X, const int8_t* W, int ldw, Acc* acc, int M, int N, int K,
                cudaStream_t s) {
   const bool tensor_cores = sizeof(T) == 2 && K % 16 == 0 && ldw % 16 == 0 && aligned16(W);
   if (!tensor_cores) {
@@ -295,11 +297,11 @@ template <typename T>
 int run(const T* x, const int8_t* b8, const float* bsc, const float* bzp, const int8_t* a8,
         const float* asc, const float* azp, const T* bias, T* y, float* scratch, T* t, int M,
         int K, int R, int N, int ldb, int lda, cudaStream_t s) {
-  float* t_acc = scratch;                  // [M, R]
-  float* y_acc = t_acc + (size_t)M * R;    // [M, N]
-  float* xsum = y_acc + (size_t)M * N;     // [M]
-  float* tsum = xsum + M;                  // [M]
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)M * (R + N + 2), s);
+  Acc* t_acc = reinterpret_cast<Acc*>(scratch);  // [M, R]
+  Acc* y_acc = t_acc + (size_t)M * R;    // [M, N]
+  Acc* xsum = y_acc + (size_t)M * N;     // [M]
+  Acc* tsum = xsum + M;                  // [M]
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(Acc) * (size_t)M * (R + N + 2), s);
   if (err != cudaSuccess) return (int)err;
   row_sums<T><<<dim3(cdiv(K, kSumThreads * kSumPerThread), M), kSumThreads, 0, s>>>(x, xsum, K);
   launch_nt<T>(x, b8, ldb, t_acc, M, R, K, s);             // acc = x · B8ᵀ
@@ -357,7 +359,8 @@ int run_sm90(const bf16* x, const int8_t* b8, const float* bsc, const float* bzp
 // b8 int8 codes, R rows `ldb` apart (ldb >= K), bsc/bzp [R] f32; a8 int8
 // codes, N rows `lda` apart (lda >= R), asc/azp [N] f32; bias [N] of the io
 // type or null; t holds M·R values of the io type. form: 0 = the split-K
-// forms (scratch holds M·(R+N+2) f32 values, zeroed here), 1 = the wgmma
+// forms (scratch holds M·(R+N+2) 64-bit accumulators, 2·M·(R+N+2) f32
+// values, zeroed here), 1 = the wgmma
 // form (bf16 only; scratch unused). Returns cudaGetLastError() after the
 // launches (0 = success), cudaErrorInvalidValue for a form the shape does
 // not allow.

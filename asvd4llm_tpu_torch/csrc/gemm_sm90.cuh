@@ -29,6 +29,10 @@
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace sm90 {
 
 using bf16 = __nv_bfloat16;
@@ -362,6 +366,27 @@ inline cudaError_t encode_map(CUtensorMap* map, int rank, const void* base, cons
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Lets `kernel` use `bytes` of dynamic shared memory on the current device.
+// cudaFuncSetAttribute is not a stream operation, so it is made once for each
+// kernel and device, on the first call, and skipped afterwards: a step that
+// is captured into a CUDA graph runs eagerly once before the capture, so
+// the capture itself makes no such call.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> granted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = granted[{fn, dev}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
 // Map of a row-major bf16 matrix [rows, cols] read in boxes of
 // [box_rows, 64] (cols * 2 a multiple of 16, base 16-byte aligned).
 inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int rows, int cols,
@@ -506,9 +531,7 @@ template <int NC, int BN>
 cudaError_t launch_gemm_tile(const CUtensorMap& mx, const CUtensorMap& mw, bf16* out,
                              const bf16* bias, int M, int N, int K, cudaStream_t stream) {
   const size_t bytes = gemm_smem_bytes(64 * NC, BN);
-  // the attribute is per device, so it is set on every call (it costs little)
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt<NC, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err = allow_smem(gemm_nt<NC, BN>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN);
   gemm_nt<NC, BN><<<grid, NC * 128 + 32, bytes, stream>>>(mx, mw, out, bias, M, N, K);
@@ -741,8 +764,7 @@ cudaError_t launch_gemm_i8_tile(const CUtensorMap& mx, const CUtensorMap& mw, bf
                                 const float* sc, const float* zp, const bf16* bias, int M, int N,
                                 int K, cudaStream_t stream) {
   const size_t bytes = gemm_i8_smem_bytes(64 * NC, BN);
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_i8<NC, BN, Cvt>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err = allow_smem(gemm_nt_i8<NC, BN, Cvt>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN);
   gemm_nt_i8<NC, BN, Cvt><<<grid, NC * 128 + 32, bytes, stream>>>(mx, mw, out, sc, zp, bias, M,

@@ -7,7 +7,8 @@
 // tk [B,T,Rk] and tv [B,T,Rv] instead of K and V.
 //
 // For every query head h of KV group g, over the live keys
-// [pos - sliding + 1, pos] of the row:
+// [pos - sliding + 1, pos] of the row, where pos is one int32 in device
+// memory (so a captured CUDA graph replays the step at each new position):
 //   K     = tk · A_k[g]ᵀ                      (f32 accumulate, not re-rounded)
 //   K     = rotate-half RoPE(K) with f32 cos/sin rows
 //   l     = scale · q_h · K (+ tanh softcap), causal/sliding mask → -1e30
@@ -24,8 +25,10 @@
 // Forms, chosen by the wrapper (`ops/latent_attention.py::_form`):
 //   * "split_wgmma" (bf16, hd 64 or 128, Rk and Rv multiples of 8, 16-byte
 //     aligned caches): the split tile of latent_split.cuh (shared with
-//     kernel 6): one block per (128-key chunk, KV group, batch row); chunks
-//     wholly outside the live window are not launched. A producer warp
+//     kernel 6): one block per (128-key chunk, KV group, batch row), every
+//     chunk of T launched whatever the position (the grid is a function of
+//     shapes only); a block whose chunk holds no live key marks it empty
+//     and exits, by kernel 6's rule (latent_split::dead_chunk). A producer warp
 //     streams the chunk's tk rows (one TMA box of 128 rows of the row's
 //     cache) and A_k[g] over Rk through a TMA ring, so A_k[g] is read once
 //     per 128 keys instead of once per 32; two consumer warpgroups
@@ -67,10 +70,11 @@ __global__ void __launch_bounds__(kThreads)
 latent_decode_kernel(const T* __restrict__ q, const T* __restrict__ tk,
                      const T* __restrict__ tv, const T* __restrict__ a_k,
                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                     float* __restrict__ out, int H, int KV, int T_len, int Rk, int Rv,
-                     int pos, float scale, float softcap, int sliding) {
+                     const int* __restrict__ pos_p, float* __restrict__ out, int H, int KV,
+                     int T_len, int Rk, int Rv, float scale, float softcap, int sliding) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int rep = H / KV;
+  const int pos = *pos_p;
   const Tile<T> s = carve<T>(smem_raw, scratch_bytes(HD), kt_ld(HD), HD, rep);
   const int g = blockIdx.x;
   const int b = blockIdx.y;
@@ -103,36 +107,35 @@ latent_decode_kernel(const T* __restrict__ q, const T* __restrict__ tk,
 
 template <typename T, int HD>
 int launch(const void* q, const void* tk, const void* tv, const void* a_k,
-           const float* cos_t, const float* sin_t, float* out, int B, int H, int KV,
-           int T_len, int Rk, int Rv, int pos, float scale, float softcap, int sliding,
+           const float* cos_t, const float* sin_t, const int* pos, float* out, int B, int H,
+           int KV, int T_len, int Rk, int Rv, float scale, float softcap, int sliding,
            cudaStream_t stream) {
   const int rep = H / KV;
   const size_t bytes = smem_bytes(HD, rep, Rv);
   auto kernel = latent_decode_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  cudaError_t err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(KV, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(tk), static_cast<const T*>(tv),
-      static_cast<const T*>(a_k), cos_t, sin_t, out, H, KV, T_len, Rk, Rv, pos, scale,
+      static_cast<const T*>(a_k), cos_t, sin_t, pos, out, H, KV, T_len, Rk, Rv, scale,
       softcap, sliding);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int HD, const void* q, const void* tk, const void* tv, const void* a_k,
-                const float* c, const float* s, float* out, int B, int H, int KV, int T_len,
-                int Rk, int Rv, int pos, float scale, float softcap, int sliding,
+                const float* c, const float* s, const int* pos, float* out, int B, int H,
+                int KV, int T_len, int Rk, int Rv, float scale, float softcap, int sliding,
                 cudaStream_t st) {
   switch (HD) {
     case 32:
-      return launch<T, 32>(q, tk, tv, a_k, c, s, out, B, H, KV, T_len, Rk, Rv, pos, scale, softcap, sliding, st);
+      return launch<T, 32>(q, tk, tv, a_k, c, s, pos, out, B, H, KV, T_len, Rk, Rv, scale, softcap, sliding, st);
     case 64:
-      return launch<T, 64>(q, tk, tv, a_k, c, s, out, B, H, KV, T_len, Rk, Rv, pos, scale, softcap, sliding, st);
+      return launch<T, 64>(q, tk, tv, a_k, c, s, pos, out, B, H, KV, T_len, Rk, Rv, scale, softcap, sliding, st);
     case 128:
-      return launch<T, 128>(q, tk, tv, a_k, c, s, out, B, H, KV, T_len, Rk, Rv, pos, scale, softcap, sliding, st);
+      return launch<T, 128>(q, tk, tv, a_k, c, s, pos, out, B, H, KV, T_len, Rk, Rv, scale, softcap, sliding, st);
     case 256:
-      return launch<T, 256>(q, tk, tv, a_k, c, s, out, B, H, KV, T_len, Rk, Rv, pos, scale, softcap, sliding, st);
+      return launch<T, 256>(q, tk, tv, a_k, c, s, pos, out, B, H, KV, T_len, Rk, Rv, scale, softcap, sliding, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -142,38 +145,29 @@ int dispatch_hd(int HD, const void* q, const void* tk, const void* tv, const voi
 
 namespace ls = latent_split;
 
-// The live keys [t_lo, t_hi) of a row and the chunks that hold them.
-struct Window {
-  int t_lo, t_hi, c_lo, n;
-};
-__host__ __device__ inline Window key_window(int T_len, int pos, int sliding) {
-  Window w;
-  w.t_hi = T_len < pos + 1 ? T_len : pos + 1;
-  w.t_lo = sliding > 0 && pos - sliding + 1 > 0 ? pos - sliding + 1 : 0;
-  w.c_lo = w.t_lo / ls::kChunk;
-  w.n = (w.t_hi + ls::kChunk - 1) / ls::kChunk - w.c_lo;
-  return w;
-}
-
 // Block (chunk j, group g, row b): the chunk's max, denominator and
 // numerator s for the group's rep heads into ws_ml [B, KV, NS, rep, 2] and
-// ws_s [B, KV, NS, rep, Rv]; the chunk's rows are rows c0.. of the row's
-// cache, one TMA box.
+// ws_s [B, KV, NS, rep, Rv], NS = cdiv(T, kChunk); the chunk's rows are rows
+// 128j.. of the row's cache, one TMA box. A chunk outside the live keys of
+// *pos_p is marked empty.
 template <int HD>
 __global__ void __launch_bounds__(ls::kThreads, 1)
 latent_split_kernel(const __grid_constant__ CUtensorMap map_tk,
                     const __grid_constant__ CUtensorMap map_ak,
                     const __grid_constant__ CUtensorMap map_tv, const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                    float* __restrict__ ws_s, float* __restrict__ ws_ml, int H, int KV, int T_len,
-                    int Rk, int Rv, int pos, float scale, float softcap, int sliding) {
+                    const int* __restrict__ pos_p, float* __restrict__ ws_s,
+                    float* __restrict__ ws_ml, int H, int KV, int T_len, int Rk, int Rv,
+                    float scale, float softcap, int sliding) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int rep = H / KV;
-  const ls::Smem s = ls::carve(smem_raw, HD, rep);
   const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const Window w = key_window(T_len, pos, sliding);
-  const int c0 = (w.c_lo + j) * ls::kChunk;
   const size_t split = ((size_t)b * KV + g) * gridDim.x + j;
+  const int pos = *pos_p;
+  const int t_lo = ls::window_lo(pos, sliding);
+  const int c0 = j * ls::kChunk;
+  if (ls::dead_chunk(c0, pos, t_lo, ws_ml + split * rep * 2, rep)) return;
+  const ls::Smem s = ls::carve(smem_raw, HD, rep);
   const int KT = (Rk + sm90::kBK - 1) / sm90::kBK;  // ring steps of the up-projection
   const int VT = (Rv + sm90::kBK - 1) / sm90::kBK;  // then of the tv sum
 
@@ -187,19 +181,20 @@ latent_split_kernel(const __grid_constant__ CUtensorMap map_tk,
                       });
     return;
   }
-  ls::consume<HD>(s, cos_t, sin_t, T_len, c0, w.t_lo, w.t_hi, Rv, rep, KT, VT, scale, softcap,
-                  ws_s + split * rep * Rv, ws_ml + split * rep * 2);
+  ls::consume<HD>(s, cos_t, sin_t, T_len, c0, t_lo, min(T_len, pos + 1), Rv, rep, KT, VT,
+                  scale, softcap, ws_s + split * rep * Rv, ws_ml + split * rep * 2);
 }
 
-// The split form: chunks, then combine_chunks into out.
-// ws holds B·KV·NS·rep·(Rv + 2) f32 values, NS the row's live chunks.
+int n_chunks_of(int T_len) { return (T_len + ls::kChunk - 1) / ls::kChunk; }
+
+// The split form: every chunk of T, then combine_chunks into out.
+// ws holds B·KV·NS·rep·(Rv + 2) f32 values, NS = n_chunks_of(T).
 template <int HD>
 int launch_split(const void* q, const void* tk, const void* tv, const void* a_k,
-                 const float* cos_t, const float* sin_t, float* ws, float* out, int B, int H,
-                 int KV, int T_len, int Rk, int Rv, int pos, float scale, float softcap,
+                 const float* cos_t, const float* sin_t, const int* pos, float* ws, float* out,
+                 int B, int H, int KV, int T_len, int Rk, int Rv, float scale, float softcap,
                  int sliding, cudaStream_t stream) {
-  const Window w = key_window(T_len, pos, sliding);
-  if (w.n <= 0 || Rk % 8 != 0 || Rv % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (T_len <= 0 || Rk % 8 != 0 || Rv % 8 != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_tk, map_ak;
   const cuuint64_t dims[3] = {(cuuint64_t)Rk, (cuuint64_t)T_len, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)Rk * 2, (cuuint64_t)T_len * Rk * 2};
@@ -216,17 +211,17 @@ int launch_split(const void* q, const void* tk, const void* tv, const void* a_k,
   const int rep = H / KV;
   const size_t bytes = ls::tail_offset(HD, rep);
   auto kernel = latent_split_kernel<HD>;
-  // the attribute is per device, so it is set on every call (it costs little)
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
+  const int NS = n_chunks_of(T_len);
   float* ws_s = ws;
-  float* ws_ml = ws + (size_t)B * KV * w.n * rep * Rv;
-  kernel<<<dim3(w.n, KV, B), ls::kThreads, bytes, stream>>>(
-      map_tk, map_ak, map_tv, static_cast<const __nv_bfloat16*>(q), cos_t, sin_t, ws_s, ws_ml,
-      H, KV, T_len, Rk, Rv, pos, scale, softcap, sliding);
+  float* ws_ml = ws + (size_t)B * KV * NS * rep * Rv;
+  kernel<<<dim3(NS, KV, B), ls::kThreads, bytes, stream>>>(
+      map_tk, map_ak, map_tv, static_cast<const __nv_bfloat16*>(q), cos_t, sin_t, pos, ws_s,
+      ws_ml, H, KV, T_len, Rk, Rv, scale, softcap, sliding);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_combine(ws_s, ws_ml, out, B, H, KV, w.n, Rv, stream);
+  return (int)launch_combine(ws_s, ws_ml, out, B, H, KV, NS, Rv, stream);
 }
 
 }  // namespace
@@ -238,43 +233,42 @@ extern "C" long long latent_attention_smem_bytes(int head_dim, int rep, int Rv) 
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, tk, tv, a_k all of it); cos/sin
-// [T, HD] f32; out [B, H, Rv] f32. form: 0 = "tile32", 1 = "split_wgmma"
-// (bf16, HD 64 or 128; ws its workspace of B·KV·n_chunks·rep·(Rv + 2) f32
-// values, n_chunks the chunks of kChunk keys that hold the live keys, else
-// both unused). Returns
-// cudaGetLastError() (0 = success), cudaErrorInvalidValue for a form the
-// shape does not allow.
+// [T, HD] f32; pos one int32 in device memory, in [0, T) (not checked here);
+// out [B, H, Rv] f32. form: 0 = "tile32", 1 = "split_wgmma" (bf16, HD 64 or
+// 128; ws its workspace of B·KV·n_chunks·rep·(Rv + 2) f32 values, n_chunks =
+// cdiv(T, 128), else both unused). No launch reads pos on the host, so a
+// CUDA graph may capture them. Returns cudaGetLastError() (0 = success),
+// cudaErrorInvalidValue for a form the shape does not allow.
 extern "C" int latent_attention_launch(const void* q, const void* tk, const void* tv,
                                        const void* a_k, const void* cos_t, const void* sin_t,
-                                       void* out, void* ws, int n_chunks, int B, int H,
-                                       int KV, int HD,
-                                       int T_len, int Rk, int Rv, int pos, float scale,
-                                       float softcap, int sliding, int dtype, int form,
-                                       void* stream) {
+                                       const void* pos, void* out, void* ws, int n_chunks,
+                                       int B, int H, int KV, int HD, int T_len, int Rk, int Rv,
+                                       float scale, float softcap, int sliding, int dtype,
+                                       int form, void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > kMaxRep) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
+  const int* p = static_cast<const int*>(pos);
   float* o = static_cast<float*>(out);
   if (form == 1) {
     float* w = static_cast<float*>(ws);
-    if (dtype != 1 || key_window(T_len, pos, sliding).n != n_chunks)
-      return (int)cudaErrorInvalidValue;
+    if (dtype != 1 || n_chunks_of(T_len) != n_chunks) return (int)cudaErrorInvalidValue;
     if (HD == 64)
-      return launch_split<64>(q, tk, tv, a_k, c, s, w, o, B, H, KV, T_len, Rk, Rv, pos, scale,
+      return launch_split<64>(q, tk, tv, a_k, c, s, p, w, o, B, H, KV, T_len, Rk, Rv, scale,
                               softcap, sliding, st);
     if (HD == 128)
-      return launch_split<128>(q, tk, tv, a_k, c, s, w, o, B, H, KV, T_len, Rk, Rv, pos, scale,
+      return launch_split<128>(q, tk, tv, a_k, c, s, p, w, o, B, H, KV, T_len, Rk, Rv, scale,
                                softcap, sliding, st);
     return (int)cudaErrorInvalidValue;
   }
   if (form != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_hd<float>(HD, q, tk, tv, a_k, c, s, o, B, H, KV, T_len, Rk, Rv, pos,
-                              scale, softcap, sliding, st);
+    return dispatch_hd<float>(HD, q, tk, tv, a_k, c, s, p, o, B, H, KV, T_len, Rk, Rv, scale,
+                              softcap, sliding, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(HD, q, tk, tv, a_k, c, s, o, B, H, KV, T_len, Rk, Rv,
-                                      pos, scale, softcap, sliding, st);
+    return dispatch_hd<__nv_bfloat16>(HD, q, tk, tv, a_k, c, s, p, o, B, H, KV, T_len, Rk, Rv,
+                                      scale, softcap, sliding, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -68,6 +68,22 @@ __device__ inline Smem carve(unsigned char* smem_raw, int HD, int rep) {
   return s;
 }
 
+// The first live key of a row whose query sits at `pos`: the live keys are
+// [window_lo, pos] (pos − sliding + 1 under a sliding window, else 0).
+__device__ __forceinline__ int window_lo(int pos, int sliding) {
+  return sliding > 0 ? max(0, pos - sliding + 1) : 0;
+}
+
+// The grid covers every chunk of a row whatever its position, which lives on
+// the device. A block whose chunk [c0, c0 + kChunk) holds no live key of
+// [t_lo, pos] marks the chunk empty for its rep heads (den 0, which
+// flash_decode::combine_chunks skips) and returns true: the block exits.
+__device__ __forceinline__ bool dead_chunk(int c0, int pos, int t_lo, float* ws_ml, int rep) {
+  if (c0 <= pos && c0 + kChunk > t_lo) return false;
+  flash_decode::mark_empty_split(ws_ml, rep);
+  return true;
+}
+
 // The group's query heads in f32, the padding rows of T(p) zeroed, the ring
 // barriers initialized. The caller synchronizes the block afterwards.
 template <typename Q>

@@ -6,8 +6,8 @@
 // forms do not take).
 //
 // Every product here is "NT": acc[M, N] += X[M, K] · W[N, K]ᵀ, split over K
-// across the grid, partial sums meeting in an f32 scratch with atomicAdd
-// (as in fused_lowrank.cu, whose design note explains why).
+// across the grid, partial sums meeting in a scratch of fixed-point
+// accumulators (Acc below; fused_lowrank.cu's design note explains why).
 
 #pragma once
 
@@ -26,6 +26,25 @@ constexpr int kSkinnyMaxM = 16;  // M at or below it takes the decode forms
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// Split-K partial sums meet in a zeroed scratch of 64-bit fixed-point
+// accumulators, in units of 2^-32, through integer atomics. Integer
+// addition is associative, so a sum does not depend on the order in which
+// the blocks finish, as an f32 atomicAdd's does: two runs of a decode step,
+// eager or replayed from a CUDA graph, give the same bits and the same
+// tokens. Range ±2^31; each partial is rounded to a multiple of 2^-32
+// (about 2.3e-10), finer than f32 rounds any partial above 2^-9.
+using Acc = unsigned long long;
+
+__device__ __forceinline__ void acc_add(Acc* a, float v) {
+  atomicAdd(a, static_cast<Acc>(__float2ll_rn(v * 4294967296.0f)));
+}
+
+// The accumulator's value, rounded once to f32 (the scale is a power of 2).
+__device__ __forceinline__ float acc_value(Acc a) {
+  return __ll2float_rn(static_cast<long long>(a)) * 2.3283064365386963e-10f;
+}
+__device__ __forceinline__ float to_f32(Acc v) { return acc_value(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -161,7 +180,7 @@ constexpr int kGemvChunk = 512;                    // K per block
 // stride over k, each warp owns kGemvRows rows of W.
 template <typename TX, typename Dec, int MM>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-gemv_dec(const TX* __restrict__ X, int Kx, Dec W, float* __restrict__ acc, int M, int N, int K) {
+gemv_dec(const TX* __restrict__ X, int Kx, Dec W, Acc* __restrict__ acc, int M, int N, int K) {
   __shared__ float xs[MM * kGemvChunk];
   const int k0 = blockIdx.y * kGemvChunk;
   const int kn = min(kGemvChunk, K - k0);
@@ -196,7 +215,7 @@ gemv_dec(const TX* __restrict__ X, int Kx, Dec W, float* __restrict__ acc, int M
     for (int m = 0; m < MM; ++m) {
       if (m < M && n0 + r < N) {
         const float v = warp_sum(s[r][m]);
-        if (lane == 0) atomicAdd(&acc[(size_t)m * N + n0 + r], v);
+        if (lane == 0) acc_add(&acc[(size_t)m * N + n0 + r], v);
       }
     }
 }
@@ -210,7 +229,7 @@ constexpr int kNtBN = 64;
 // slice of this blockIdx.z.
 template <typename TX, typename Dec>
 __global__ void __launch_bounds__(kNtThreads)
-nt_dec(const TX* __restrict__ X, int Kx, Dec W, float* __restrict__ acc, int M, int N, int K,
+nt_dec(const TX* __restrict__ X, int Kx, Dec W, Acc* __restrict__ acc, int M, int N, int K,
        int k_chunk) {
   constexpr int TM = kNtBM / 16, TN = kNtBN / 16;
   __shared__ float xs[kNtBK][kNtBM + 1];
@@ -257,14 +276,14 @@ nt_dec(const TX* __restrict__ X, int Kx, Dec W, float* __restrict__ acc, int M, 
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) atomicAdd(&acc[(size_t)m * N + n], c[i][j]);
+      if (n < N) acc_add(&acc[(size_t)m * N + n], c[i][j]);
     }
   }
 }
 
 // acc[M, N] += X[M, Kx] · W[N, K]ᵀ on the CUDA cores, X zero past column Kx.
 template <typename TX, typename Dec>
-void launch_cuda_cores(const TX* X, int Kx, Dec W, float* acc, int M, int N, int K,
+void launch_cuda_cores(const TX* X, int Kx, Dec W, Acc* acc, int M, int N, int K,
                        cudaStream_t s) {
   if (M <= kSkinnyMaxM) {
     const dim3 grid(cdiv(N, kGemvBlockRows), cdiv(K, kGemvChunk));
@@ -297,7 +316,7 @@ constexpr int kTileCLd = kTile + 4;              // f32 epilogue row stride
 
 // Store the skinny form's accumulators: c[mt][j] is W row `row` (+8 for
 // j >= 2), X row mt*8 + 2t + (j & 1).
-__device__ __forceinline__ void skinny_store(const float (&c)[2][4], float* acc, int row, int t,
+__device__ __forceinline__ void skinny_store(const float (&c)[2][4], Acc* acc, int row, int t,
                                              int m_tiles, int M, int N) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -305,17 +324,17 @@ __device__ __forceinline__ void skinny_store(const float (&c)[2][4], float* acc,
     for (int j = 0; j < 4; ++j) {
       const int n = row + (j >= 2 ? 8 : 0);
       const int m = mt * 8 + 2 * t + (j & 1);
-      if (mt < m_tiles && m < M && n < N) atomicAdd(&acc[(size_t)m * N + n], c[mt][j]);
+      if (mt < m_tiles && m < M && n < N) acc_add(&acc[(size_t)m * N + n], c[mt][j]);
     }
 }
 
 // y = round(acc + bias); bias may be null.
 template <typename T>
-__global__ void finalize_bias(const float* __restrict__ acc, const T* __restrict__ bias,
+__global__ void finalize_bias(const Acc* __restrict__ acc, const T* __restrict__ bias,
                               T* __restrict__ y, int M, int N) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
-  float v = acc[i];
+  float v = acc_value(acc[i]);
   if (bias != nullptr) v += to_f32(bias[i % N]);
   y[i] = from_f32<T>(v);
 }

@@ -186,8 +186,7 @@ int launch(const float* q, const void* k_pool, const void* v_pool, const int* pt
   const int NS = n_splits(MP, P);
   float* ws_ml = ws + (size_t)B * H * NS * SV;
   auto kernel = paged_dense_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  cudaError_t err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(KV, B, NS), kThreads, bytes, stream>>>(
       q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool), pt, positions, ws,
@@ -488,7 +487,7 @@ int launch(const float* q, const void* k_pool, const void* v_pool, const int* pt
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = smem_bytes(HD, VLAT);
   auto kernel = paged_dense_split_kernel<HD, VLAT>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const int NS = (MP * P + kChunk - 1) / kChunk;
   float* ws_ml = ws + (size_t)B * H * NS * SV;

@@ -135,8 +135,7 @@ int launch(const float* q, const void* tk, const void* tv, const void* a_k, cons
   const int NS = n_splits(MP, P);
   float* ws_ml = ws + (size_t)B * H * NS * Rv;
   auto kernel = paged_latent_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  cudaError_t err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(KV, B, NS), kThreads, bytes, stream>>>(
       q, static_cast<const T*>(tk), static_cast<const T*>(tv), static_cast<const T*>(a_k),
@@ -188,12 +187,9 @@ paged_latent_split_kernel(const __grid_constant__ CUtensorMap map_tk,
   const int j = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const size_t split = ((size_t)b * KV + g) * gridDim.x + j;
   const int pos = positions[b];
-  const int t_lo = sliding > 0 ? max(0, pos - sliding + 1) : 0;
+  const int t_lo = ls::window_lo(pos, sliding);
   const int c0 = j * ls::kChunk;
-  if (c0 > pos || c0 + ls::kChunk <= t_lo) {  // no live key in this chunk
-    mark_empty_split(ws_ml + split * rep * 2, rep);
-    return;
-  }
+  if (ls::dead_chunk(c0, pos, t_lo, ws_ml + split * rep * 2, rep)) return;
   const ls::Smem s = ls::carve(smem_raw, HD, rep);
   int* pts = reinterpret_cast<int*>(s.tail);  // [MP] the row's page ids
   for (int i = threadIdx.x; i < MP; i += ls::kThreads) pts[i] = page_table[(size_t)b * MP + i];
@@ -255,7 +251,7 @@ int launch_split(const float* q, const void* tk, const void* tv, const void* a_k
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = split_smem_bytes(HD, H / KV, MP);
   auto kernel = paged_latent_split_kernel<HD>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = sm90::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const int NS = n_splits(MP, P);
   float* ws_ml = ws + (size_t)B * H * NS * Rv;

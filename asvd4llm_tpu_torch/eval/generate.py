@@ -20,6 +20,15 @@ layer keeps a dense cache, as in the JAX package.
 Caches are updated in place (the JAX package returns new arrays): a
 decode step writes one position of each layer's cache and returns the same
 dicts.
+
+A decode step takes its position as an int or as a 0-d int32 tensor on the
+params' device and never reads it on the host (RoPE rows by
+``index_select``, cache writes by ``index_copy_``, the mask from
+``k_pos <= pos``), so one step captured into a CUDA graph replays at each
+new position. ``generate_on_device`` decodes that way (``DecodeGraph``,
+the counterpart of the JAX package's ``_decode_while``); ``generate`` is
+the host loop of eager steps, and ``generate_auto`` picks the first on a
+CUDA device, as the JAX package picks its while-loop on a TPU.
 """
 
 from __future__ import annotations
@@ -36,9 +45,13 @@ from asvd4llm_tpu_torch.models.decoder import (
     rope_cos_sin,
 )
 from asvd4llm_tpu_torch.models.registry import is_lowrank
+from asvd4llm_tpu_torch.ops.latent_attention import device_position, latent_decode_attention
 from asvd4llm_tpu_torch.ops.lowrank import align_ranks
+from asvd4llm_tpu_torch.utils.graphs import StepGraph
 
 NEG = -1e30
+# replays of the decode graph between two reads of the finished flags
+READBACK_EVERY = 8
 
 
 def layer_uses_latent_kv(layer) -> bool:
@@ -139,17 +152,21 @@ def _absorbed_v_out(probs, tv, v_leaf, KV, hd, rep, x_dtype):
 def _attend_step(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
                  up=False):
     """One-token attention (x: [B,1,hidden]) against the cache, which is
-    written in place at ``pos``; returns (attn_out, cache)."""
-    from asvd4llm_tpu_torch.ops.latent_attention import latent_decode_attention
-
+    written in place at ``pos`` (an int or a 0-d int32 tensor); returns
+    (attn_out, cache)."""
     B = x.shape[0]
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     T = _cache_len(cache)
     rep = H // KV
     o_key = "o_proj" if "o_proj" in layer else "out_proj"
+    pos = device_position(pos, T, x.device)
+    idx = pos.reshape(1).long()
+
+    def write(key, val):  # val [B, 1, ...] into position pos of the cache
+        cache[key].index_copy_(1, idx, val.to(cache[key].dtype))
 
     q = _apply_leaf(layer["q_proj"], x, up).reshape(B, 1, H, hd)
-    cos_q, sin_q = cos_full[pos:pos + 1], sin_full[pos:pos + 1]
+    cos_q, sin_q = cos_full.index_select(0, idx), sin_full.index_select(0, idx)
     if spec.pos_emb == "rope":
         q = apply_rope(q, cos_q, sin_q)
 
@@ -162,8 +179,8 @@ def _attend_step(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
     mask_t = torch.where(allow, 0.0, NEG).float()          # [T]
 
     if "tk" in cache:  # --- latent low-rank path ---
-        cache["tk"][:, pos] = _latent(layer["k_proj"], x)[:, 0].to(cache["tk"].dtype)
-        cache["tv"][:, pos] = _latent(layer["v_proj"], x)[:, 0].to(cache["tv"].dtype)
+        write("tk", _latent(layer["k_proj"], x))
+        write("tv", _latent(layer["v_proj"], x))
         tk, tv = cache["tk"], cache["tv"]
 
         if up and spec.pos_emb == "rope" and layer["k_proj"]["b"] is None:
@@ -188,8 +205,8 @@ def _attend_step(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
         k_new = _apply_leaf(layer["k_proj"], x, up).reshape(B, 1, KV, hd)
         if spec.pos_emb == "rope":
             k_new = apply_rope(k_new, cos_q, sin_q)
-        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["tv"][:, pos] = _latent(layer["v_proj"], x)[:, 0].to(cache["tv"].dtype)
+        write("k", k_new)
+        write("tv", _latent(layer["v_proj"], x))
         probs = _gqa_probs(q[:, 0], cache["k"], rep, scale,
                            spec.attn_logit_softcap, mask_t)
         out = _absorbed_v_out(probs, cache["tv"], layer["v_proj"], KV, hd,
@@ -199,8 +216,8 @@ def _attend_step(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
         v_new = _apply_leaf(layer["v_proj"], x, up).reshape(B, 1, KV, hd)
         if spec.pos_emb == "rope":
             k_new = apply_rope(k_new, cos_q, sin_q)
-        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        write("k", k_new)
+        write("v", v_new)
         v = cache["v"]
         probs = _gqa_probs(q[:, 0], cache["k"], rep, scale,
                            spec.attn_logit_softcap, mask_t)
@@ -252,15 +269,19 @@ def _decode_layer(spec, layer, x, cache, pos, cos_full, sin_full, layer_idx,
 
 
 @torch.no_grad()
-def decode_step(params, spec, token, caches, pos: int, use_pallas=False):
-    """token: [B,1] -> (logits [B,vocab] f32, caches). pos: int position of
-    the token; the caches are written in place."""
-    pos = int(pos)
-    x = embed(params, spec, token)
-    max_len = _cache_len(caches[0])
+def decode_step(params, spec, token, caches, pos, use_pallas=False):
+    """token: [B,1] -> (logits [B,vocab] f32, caches). pos: the token's
+    position, an int or a 0-d int32 tensor on the token's device (never
+    read on the host, so a captured CUDA graph of this step replays at the
+    tensor's current value); the caches are written in place."""
     dev = token.device
+    max_len = _cache_len(caches[0])
+    pos = device_position(pos, max_len, dev)
+    x = embed(params, spec, token)
     if spec.pos_emb == "learned":
-        x = x + params["embed_positions"][pos + spec.pos_offset][None, None, :]
+        row = params["embed_positions"].index_select(
+            0, pos.reshape(1).long() + spec.pos_offset)
+        x = x + row[None]
         cos_full = sin_full = torch.zeros((max_len, spec.head_dim), device=dev)
     else:
         cos_full, sin_full = rope_cos_sin(torch.arange(max_len, device=dev),
@@ -365,15 +386,12 @@ def _forward_capture_latents(params, spec, ids):
     return latents, final_hidden(params, spec, x)
 
 
-@torch.no_grad()
-def generate(params, spec, input_ids, *, max_new_tokens: int = 32,
-             eos_token_id: Optional[int] = None, max_len: Optional[int] = None,
-             latent_kv: bool = False, use_pallas: bool = False,
-             dtype=None) -> np.ndarray:
-    """Greedy generation on the params' device. input_ids: [B, S] ->
-    numpy [B, S + new]. With ``use_pallas`` the low-rank ranks are first
-    zero-padded to the kernels' multiple (``align_ranks``, exact), so the
-    latent caches are allocated padded."""
+def _prefilled(params, spec, input_ids, max_new_tokens, max_len, latent_kv,
+               use_pallas, dtype):
+    """The start of a greedy generation: (params, ids, caches, first token
+    [B, 1]). With ``use_pallas`` the low-rank ranks are first zero-padded to
+    the kernels' multiple (``align_ranks``, exact), so the latent caches are
+    allocated padded."""
     if use_pallas:
         params = align_ranks(params, spec)
     dev = params["embed_tokens"].device
@@ -383,11 +401,23 @@ def generate(params, spec, input_ids, *, max_new_tokens: int = 32,
     dtype = dtype or params["embed_tokens"].dtype
     caches = init_caches(params, spec, B, total, dtype, latent=latent_kv,
                          device=dev)
-
     logits, caches = prefill_host(params, spec, ids, caches, latent=latent_kv)
-    out = [np.asarray(input_ids)]
     token = torch.argmax(logits, dim=-1)[:, None].to(ids.dtype)
-    finished = np.zeros((B,), bool)
+    return params, ids, caches, token
+
+
+@torch.no_grad()
+def generate(params, spec, input_ids, *, max_new_tokens: int = 32,
+             eos_token_id: Optional[int] = None, max_len: Optional[int] = None,
+             latent_kv: bool = False, use_pallas: bool = False,
+             dtype=None) -> np.ndarray:
+    """Greedy generation on the params' device, one eager decode step and
+    one host read per token. input_ids: [B, S] -> numpy [B, S + new]."""
+    params, ids, caches, token = _prefilled(params, spec, input_ids, max_new_tokens,
+                                            max_len, latent_kv, use_pallas, dtype)
+    S = ids.shape[1]
+    out = [np.asarray(input_ids)]
+    finished = np.zeros((ids.shape[0],), bool)
     for step in range(max_new_tokens):
         tok_np = token.cpu().numpy()
         out.append(tok_np)
@@ -401,3 +431,123 @@ def generate(params, spec, input_ids, *, max_new_tokens: int = 32,
                                      use_pallas=use_pallas)
         token = torch.argmax(logits, dim=-1)[:, None].to(ids.dtype)
     return np.concatenate(out, axis=1)
+
+
+def _n_steps(tokens: np.ndarray, eos_token_id) -> int:
+    """The JAX while-loop's step count for the emitted tokens [B, m]: the
+    first step after which every row has emitted EOS, else m."""
+    if eos_token_id is None:
+        return tokens.shape[1]
+    hit = tokens == eos_token_id
+    if not hit.any(axis=1).all():
+        return tokens.shape[1]
+    return int(hit.argmax(axis=1).max()) + 1
+
+
+class DecodeGraph:
+    """Greedy decode steps over static device buffers, captured once as a
+    CUDA graph and replayed: the counterpart of the JAX package's
+    ``_decode_while`` body. The step records the current token in
+    ``out[:, step]``, folds it into the finished flags, decodes it at
+    ``pos`` and leaves the greedy next token in ``token``, then advances
+    ``pos`` and ``step``; n replays decode n tokens with no host round
+    trip. ``token0`` is the prefill's pick, ``caches`` are written in
+    place. On a CPU tensor each replay runs the step eagerly (``generate``
+    is the eager loop on any device).
+
+    The last emitted token needs no decode, so a generation of m tokens is
+    m - 1 replays and never writes a cache position past start_pos + m - 2.
+    """
+
+    def __init__(self, params, spec, token0, caches, start_pos: int,
+                 max_new_tokens: int, eos_token_id=None, use_pallas=False):
+        B = token0.shape[0]
+        dev = token0.device
+        T = _cache_len(caches[0])
+        if start_pos + max_new_tokens - 1 > T:
+            raise ValueError(f"a cache of {T} positions cannot decode {max_new_tokens}"
+                             f" tokens after a prompt of {start_pos}")
+        self.params, self.spec, self.caches = params, spec, caches
+        self.eos_token_id, self.use_pallas = eos_token_id, use_pallas
+        self.max_new_tokens = max_new_tokens
+        self.token = token0.clone()
+        self.pos = torch.tensor(start_pos, dtype=torch.int32, device=dev)
+        self.step_i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = torch.zeros((B, max(1, max_new_tokens - 1)), dtype=token0.dtype,
+                               device=dev)
+        self.finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.replays = 0
+        self.graph = StepGraph(self._step, [self.token, self.pos, self.step_i, self.out,
+                                            self.finished]) if max_new_tokens > 1 else None
+
+    def _step(self):
+        self.out.index_copy_(1, self.step_i.reshape(1), self.token)
+        if self.eos_token_id is not None:
+            self.finished |= self.token[:, 0] == self.eos_token_id
+        logits, _ = decode_step(self.params, self.spec, self.token, self.caches,
+                                self.pos, use_pallas=self.use_pallas)
+        self.token.copy_(torch.argmax(logits, dim=-1)[:, None])
+        self.pos += 1
+        self.step_i += 1
+
+    def replay(self, n: int):
+        """n more decode steps (at most max_new_tokens - 1 in all)."""
+        if self.replays + n > self.max_new_tokens - 1:
+            raise ValueError(f"{self.replays} + {n} replays exceed the "
+                             f"{self.max_new_tokens - 1} this decode holds")
+        self.graph.replay(n)
+        self.replays += n
+
+    def run(self):
+        """Replay until max_new_tokens are emitted or, reading the finished
+        flags every READBACK_EVERY replays, every row has emitted EOS.
+        Returns (tokens [B, m] numpy, n_steps): the emitted tokens and the
+        JAX while-loop's step count; tokens[:, :n_steps] are valid."""
+        limit = self.max_new_tokens - 1
+        while self.replays < limit:
+            self.replay(min(READBACK_EVERY, limit - self.replays))
+            if self.eos_token_id is not None and bool(self.finished.all()):
+                break
+        tokens = torch.cat([self.out[:, :self.replays], self.token], dim=1)
+        tokens = tokens[:, :self.max_new_tokens].cpu().numpy()
+        return tokens, _n_steps(tokens, self.eos_token_id)
+
+
+def _decode_while(params, spec, token0, caches, start_pos, max_new_tokens,
+                  eos_token_id, use_pallas=False):
+    """Greedy decode of up to max_new_tokens from token0 by a replayed CUDA
+    graph with EOS early exit. Returns (tokens [B, m] numpy, n_steps), m <=
+    max_new_tokens; tokens[:, :n_steps] are the valid emissions, as from
+    the JAX package's ``_decode_while``."""
+    if max_new_tokens <= 0:
+        return np.zeros((token0.shape[0], 0), np.int64), 0
+    dg = DecodeGraph(params, spec, token0, caches, start_pos, max_new_tokens,
+                     eos_token_id, use_pallas)
+    return dg.run()
+
+
+@torch.no_grad()
+def generate_on_device(params, spec, input_ids, *, max_new_tokens: int = 32,
+                       eos_token_id: Optional[int] = None,
+                       max_len: Optional[int] = None, latent_kv: bool = False,
+                       use_pallas: bool = False, dtype=None) -> np.ndarray:
+    """Greedy generation with the decode loop on the device: prefill as
+    ``generate`` does, then one captured decode step replayed per token
+    (eagerly on the CPU). Token-identical to ``generate``: rows that emitted
+    EOS keep decoding greedily until every row has, and the surplus is
+    cut."""
+    params, ids, caches, token = _prefilled(params, spec, input_ids, max_new_tokens,
+                                            max_len, latent_kv, use_pallas, dtype)
+    out, n = _decode_while(params, spec, token, caches, ids.shape[1],
+                           max_new_tokens, eos_token_id, use_pallas=use_pallas)
+    return np.concatenate([np.asarray(input_ids), out[:, :n]], axis=1)
+
+
+def generate_auto(params, spec, input_ids, **kw) -> np.ndarray:
+    """Greedy generation by the replayed decode graph when the params live
+    on a CUDA device (one graph launch per token instead of a step of eager
+    launches and a host read) and by the host loop elsewhere; both are
+    token-identical."""
+    if params["embed_tokens"].device.type == "cuda":
+        return generate_on_device(params, spec, input_ids, **kw)
+    return generate(params, spec, input_ids, **kw)

@@ -88,8 +88,9 @@ def _launch(x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if form == "wgmma_tiled":   # t [M, R], rounded to bf16 by stage 1
         scratch = torch.empty((M * R,), dtype=torch.bfloat16, device=x2.device)
-    else:                       # f32 t [M, R] and the split-K sums of y [M, N]
-        scratch = torch.empty((M * (R + N),), dtype=torch.float32, device=x2.device)
+    else:   # 64-bit split-K accumulators of t [M, R] and y [M, N], two f32
+            # slots each
+        scratch = torch.empty((2 * M * (R + N),), dtype=torch.float32, device=x2.device)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = fn(x2.data_ptr(), b.data_ptr(), a.data_ptr(),

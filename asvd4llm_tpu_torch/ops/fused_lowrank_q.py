@@ -68,7 +68,7 @@ def _check(kind, x2, tensors, dtypes):
 def _launch(name, x2, tensors, ints, N, R, split_k=True):
     """Launch csrc/<name>.cu's entry point on `tensors` (pointers; None is a
     null pointer) and `ints`; returns y [M, N]. `split_k`: the form sums
-    over K in an f32 scratch."""
+    over K in a scratch of 64-bit fixed-point accumulators."""
     M = x2.shape[0]
     lib = _build.library(name)
     fn = getattr(lib, f"{name}_launch")
@@ -76,9 +76,10 @@ def _launch(name, x2, tensors, ints, N, R, split_k=True):
     fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 3)
                    + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_void_p])
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    # f32 split-K sums of t [M, R] and y [M, N] (+ two row-sum vectors),
-    # zeroed by the launcher; t rounded to the io dtype for stage 2
-    scratch = torch.empty((M * (R + N + 2) if split_k else 0,), dtype=torch.float32,
+    # split-K sums of t [M, R] and y [M, N] (+ two row-sum vectors), 64-bit
+    # accumulators (two f32 slots each) zeroed by the launcher; t rounded to
+    # the io dtype for stage 2
+    scratch = torch.empty((2 * M * (R + N + 2) if split_k else 0,), dtype=torch.float32,
                           device=x2.device)
     t = torch.empty((M, R), dtype=x2.dtype, device=x2.device)
     ptrs = [None if a is None else a.data_ptr() for a in (*tensors, y, scratch, t)]

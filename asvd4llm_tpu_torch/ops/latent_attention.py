@@ -21,6 +21,13 @@ the plain version of what the "split_wgmma" form computes (per-chunk max,
 denominator and numerator, then their combination). Restrictions, as in the
 JAX kernel: rope positional encoding and no k-projection bias (the caller
 checks).
+
+The position ``pos`` is an int or a 0-d int32 tensor on the inputs'
+device. The kernel reads it from device memory, as the JAX kernel reads it
+from SMEM, and its grid depends on shapes only, so a CUDA graph that
+captured a decode step replays it at each new position
+(utils/graphs.py). An int is checked against the cache and moved to the
+device once per call.
 """
 
 from __future__ import annotations
@@ -49,15 +56,6 @@ def _form(dtype: torch.dtype, hd: int, Rk: int, Rv: int, aligned: bool = True) -
             and Rv % 8 == 0 and aligned):
         return "split_wgmma"
     return "tile32"
-
-
-def split_chunks(T: int, pos: int, sliding: int):
-    """(first chunk, number of chunks) of SPLIT_KEYS keys that hold the live
-    keys [pos - sliding + 1, pos] of a cache of T."""
-    t_hi = min(T, pos + 1)
-    t_lo = max(0, pos - sliding + 1) if sliding > 0 else 0
-    c_lo = t_lo // SPLIT_KEYS
-    return c_lo, -(-t_hi // SPLIT_KEYS) - c_lo
 
 
 def _rotate_half(k: torch.Tensor) -> torch.Tensor:
@@ -101,20 +99,19 @@ def latent_attention_reference(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *,
 
 def latent_attention_split_reference(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *,
                                      scale, softcap, sliding, kv_heads,
-                                     chunk=SPLIT_KEYS, chunks=None):
+                                     chunk=SPLIT_KEYS):
     """Plain version of the split form: keys cut into chunks of `chunk`;
     per chunk and head the max m_j of the masked logits, den_j = Σ p and
     s_j = Σ T(p)·tv with p = exp(l − m_j) rounded to tv's type for s only;
     then out = Σ_j e^(m_j − M)·s_j / Σ_j e^(m_j − M)·den_j over the chunks
-    with den_j > 0, M their largest m_j. `chunks` (first, count) picks the
-    chunks visited (default: all of T); a chunk with no live key has
-    den = 0 and drops out. -> s [B, H, Rv] f32."""
+    with den_j > 0, M their largest m_j. Every chunk of T is visited, as
+    the kernel launches them all; a chunk with no live key has den = 0 and
+    drops out. -> s [B, H, Rv] f32."""
     T = tk.shape[1]
     logits, allow = _masked_logits(q_rot, tk, a_k, cos_full, sin_full, pos, scale=scale,
                                    softcap=softcap, sliding=sliding, kv_heads=kv_heads)
-    first, count = chunks if chunks is not None else (0, -(-T // chunk))
     ms, dens, nums = [], [], []
-    for j in range(first, first + count):
+    for j in range(-(-T // chunk)):
         sl = slice(j * chunk, min(T, (j + 1) * chunk))
         m = logits[..., sl].amax(dim=-1)                      # [B, KV, rep]
         p = torch.exp(logits[..., sl] - m[..., None])
@@ -131,6 +128,22 @@ def latent_attention_split_reference(q_rot, tk, tv, a_k, cos_full, sin_full, pos
     return (num / den[..., None]).reshape(q_rot.shape[0], q_rot.shape[1], -1)
 
 
+def device_position(pos, T: int, device) -> torch.Tensor:
+    """``pos`` as a 0-d int32 tensor on ``device``: an int is checked against
+    a cache of T and moved once; a tensor is taken as it is (its value is
+    never read on the host, so it may live in a buffer a CUDA graph
+    advances)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != device:
+            raise ValueError(f"latent_attention: position tensor {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}, expected one "
+                             f"int32 on {device}")
+        return pos.reshape(())
+    if not 0 <= int(pos) < T:
+        raise ValueError(f"latent_attention: position {pos} outside cache of {T}")
+    return torch.tensor(int(pos), dtype=torch.int32, device=device)
+
+
 def _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *, scale, softcap,
             sliding, kv_heads, form=None):
     B, H, hd = q_rot.shape
@@ -143,8 +156,7 @@ def _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *, scale, softcap,
         raise ValueError(f"latent_attention: head_dim {hd} not in {_HEAD_DIMS}")
     if H % KV or H // KV > _MAX_REP:
         raise ValueError(f"latent_attention: {H} heads over {KV} KV heads")
-    if not 0 <= pos < T:
-        raise ValueError(f"latent_attention: position {pos} outside cache of {T}")
+    pos = device_position(pos, T, q_rot.device)
     shapes = {"tk": (tk, (B, T, Rk)), "tv": (tv, (B, T, Rv)),
               "a_k": (a_k, (KV * hd, Rk)), "cos": (cos_full, (T, hd)),
               "sin": (sin_full, (T, hd)), "q": (q_rot, (B, H, hd))}
@@ -171,22 +183,22 @@ def _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *, scale, softcap,
             raise ValueError(f"latent_attention: needs {need} bytes of shared "
                              f"memory (rep {H // KV}, Rv {Rv}), over {_MAX_SMEM}")
         ws, ns = None, 0
-    else:   # per-chunk max, denominator and numerator of every head
-        ns = split_chunks(T, int(pos), int(sliding))[1]
+    else:   # per-chunk max, denominator and numerator of every head, every chunk
+        ns = -(-T // SPLIT_KEYS)
         ws = torch.empty((B * H * ns * (Rv + 2),), dtype=torch.float32,
                          device=q_rot.device)
     fn = lib.latent_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     out = torch.empty((B, H, Rv), dtype=torch.float32, device=q_rot.device)
     with torch.cuda.device(q_rot.device):
         stream = torch.cuda.current_stream(q_rot.device).cuda_stream
         err = fn(q_rot.data_ptr(), tk.data_ptr(), tv.data_ptr(), a_k.data_ptr(),
-                 cos_full.data_ptr(), sin_full.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), ns,
-                 B, H, KV, hd, T, Rk, Rv, int(pos), float(scale),
+                 cos_full.data_ptr(), sin_full.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(), ns,
+                 B, H, KV, hd, T, Rk, Rv, float(scale),
                  float(softcap), int(sliding), _DTYPE_CODES[q_rot.dtype],
                  _FORM_CODES[form], stream)
     _build.check(lib, "latent_attention", err)
@@ -200,7 +212,8 @@ def _launch(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *, scale, softcap,
 def _latent_attention_core(q_rot, tk, tv, a_k, cos_full, sin_full, pos, *,
                            scale, softcap, sliding, kv_heads, form=None):
     """q_rot [B, H, hd] (already rotated), tk [B, T, Rk], tv [B, T, Rv],
-    a_k [KV*hd, Rk], cos/sin [T, hd] f32, pos int -> s_norm [B, H, Rv] f32.
+    a_k [KV*hd, Rk], cos/sin [T, hd] f32, pos an int or a 0-d int32 tensor
+    -> s_norm [B, H, Rv] f32.
     `form` (measurements only) runs a named kernel form instead of the one
     `_form` picks; the launcher refuses one the shape does not allow."""
     kw = dict(scale=scale, softcap=softcap, sliding=sliding, kv_heads=kv_heads)
@@ -219,8 +232,8 @@ def latent_decode_attention(q_rot, tk, tv, a_k, a_v, cos_full, sin_full, pos,
 
     q_rot [B, H, hd] rotated query; tk/tv [B, T, R*] latent caches;
     a_k [KV*hd, Rk], a_v [KV*hd, Rv] (the low-rank A factors); pos: the
-    query's position (int). Returns the attention output [B, H*hd] f32
-    (pre-o_proj). Keys at or past T never enter, which equals the JAX
+    query's position, an int or a 0-d int32 tensor on the device. Returns
+    the attention output [B, H*hd] f32 (pre-o_proj). Keys at or past T never enter, which equals the JAX
     wrapper's zero padding of T to its tile."""
     B, H, hd = q_rot.shape
     KV = kv_heads
@@ -228,7 +241,7 @@ def latent_decode_attention(q_rot, tk, tv, a_k, a_v, cos_full, sin_full, pos,
     Rv = tv.shape[2]
     s_norm = _latent_attention_core(
         q_rot.contiguous(), tk, tv, a_k, cos_full.float().contiguous(),
-        sin_full.float().contiguous(), int(pos), scale=scale, softcap=softcap,
+        sin_full.float().contiguous(), pos, scale=scale, softcap=softcap,
         sliding=sliding, kv_heads=KV)                        # [B, H, Rv]
     # V up-projection per KV group, never materializing the repeated A_v
     a_v3 = a_v.float().reshape(KV, hd, Rv)

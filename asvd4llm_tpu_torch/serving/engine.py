@@ -3,7 +3,12 @@
 Counterpart of asvd4llm_tpu/serving/engine.py. Host-side orchestration
 (admission, page allocation, EOS retirement, the prefix cache) around one
 ``paged_decode_step`` whose shapes never change: [max_batch] slots,
-[max_batch, max_pages] page table. Sequences of different lengths decode in
+[max_batch, max_pages] page table. On a CUDA device that step is a captured
+CUDA graph (serving/paged.py::PagedDecoder), replayed once per token: the
+host refreshes the decoder's device copies of the page table, positions and
+current tokens with one copy each before the replays and reads the tokens
+back once after them. Admission and chunked prefill stay eager (their
+shapes vary, as the JAX package's separate jits do). Sequences of different lengths decode in
 the same step — each row carries its own position, new requests join as
 slots free up, and a finished request's pages return to the pool at once.
 The pools and the device-side page table live on the params' device.
@@ -23,9 +28,8 @@ import torch
 
 from asvd4llm_tpu_torch.ops.lowrank import align_ranks
 from asvd4llm_tpu_torch.serving.paged import (
-    default_page_size, init_paged_pools, paged_append_batch_select,
-    paged_decode_scan, paged_decode_step, pages_needed, prefill_into_pages,
-    sample_rows_keyed,
+    PagedDecoder, default_page_size, init_paged_pools, paged_append_batch_select,
+    pages_needed, prefill_into_pages, sample_rows_keyed,
 )
 
 log = logging.getLogger(__name__)
@@ -68,6 +72,11 @@ class PagedEngine:
     at ``num_pages * 64`` tokens (64 is the smallest automatic page), so an
     automatic page never grows the pool the caller asked for; an explicit
     ``page_size`` keeps ``num_pages`` as given.
+
+    ``eager_steps`` is for measurements only, as ``form=`` is on the kernel
+    wrappers: it runs each decode step as eager launches instead of
+    replaying the captured graph (chip_smoke.py times both in turns). The
+    tokens are the same either way.
     """
 
     def __init__(self, params, spec, *, max_batch: int = 4,
@@ -77,7 +86,7 @@ class PagedEngine:
                  use_pallas: bool | None = None, temperature: float = 0.0,
                  top_p: float = 1.0, seed: int = 0,
                  prefill_chunk: int = 0, prefix_cache: int = 0,
-                 prefer_memory: bool = False):
+                 prefer_memory: bool = False, eager_steps: bool = False):
         # The JAX engine pre-pads q8/q4 code arrays to its kernels' tile grid
         # here; the port's kernels pad nothing per call, so nothing to do.
         self.params, self.spec = params, spec
@@ -119,6 +128,10 @@ class PagedEngine:
         self.page_table = np.zeros((max_batch, max_pages_per_seq), np.int32)
         self.positions = np.zeros((max_batch,), np.int32)
         self.cur_token = np.zeros((max_batch, 1), np.int64)
+        self._decoder = PagedDecoder(params, spec, self.pools, max_batch,
+                                     max_pages_per_seq, use_pallas=use_pallas,
+                                     temperature=self.temperature, top_p=self.top_p,
+                                     seed=self.seed, eager=eager_steps)
         self.slots: list[_Request | None] = [None] * max_batch
         # page 0 is the reserved scratch page for inactive slots
         self.free_pages = list(range(num_pages - 1, 0, -1))
@@ -411,42 +424,16 @@ class PagedEngine:
 
     def step(self):
         """One admission segment (chunked mode) and one decode token for
-        every decoding slot (ragged positions)."""
-        if self.prefill_chunk:
-            self._prefill_tick()
-        active = [s for s in self.slots if s is not None and s.decoding]
-        if not active:
-            return
-        self._grow_pages(active, 1)
-
-        t0 = time.perf_counter()
-        logits, self.pools = paged_decode_step(
-            self.params, self.spec, self._dev(self.cur_token), self.pools,
-            self._dev(self.page_table), self._dev(self.positions),
-            use_pallas=self.use_pallas)
-        if self.temperature <= 0:
-            toks = torch.argmax(logits, dim=-1).cpu().tolist()
-        else:  # by slot
-            toks = {req.slot: self._pick(logits[req.slot], req.rid,
-                                         int(self.positions[req.slot]) + 1)
-                    for req in active}
-        self.phase_s["decode"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-
-        for req in list(active):
-            tok = int(toks[req.slot])
-            req.tokens.append(tok)
-            self.positions[req.slot] += 1
-            self.cur_token[req.slot, 0] = tok
-            if self._finished(req):
-                self._retire(req)
-        self.phase_s["host"] += time.perf_counter() - t0
+        every decoding slot (ragged positions): one replay of the decode
+        graph, then the host's bookkeeping."""
+        self.step_many(1)
 
     def step_many(self, n_steps: int):
         """Decode n_steps tokens per active slot with no host round trip
-        in between (multi-step scheduling): admission and retirement happen
-        every n_steps tokens. Rows finishing mid-chunk have their surplus
-        tokens discarded — the same output as step() by step."""
+        in between (multi-step scheduling): n_steps replays of the decode
+        graph, one copy of the tokens to the host, then admission and
+        retirement. Rows finishing mid-chunk have their surplus tokens
+        discarded — the same output as step() by step."""
         if self.prefill_chunk:
             self._prefill_tick()
         active = [s for s in self.slots if s is not None and s.decoding]
@@ -458,12 +445,8 @@ class PagedEngine:
         for req in active:
             rids[req.slot] = req.rid
         t0 = time.perf_counter()
-        toks, self.pools = paged_decode_scan(
-            self.params, self.spec, self._dev(self.cur_token), self.pools,
-            self._dev(self.page_table), self._dev(self.positions), n_steps,
-            use_pallas=self.use_pallas, temperature=self.temperature,
-            top_p=self.top_p, seed=self.seed, rids=rids.tolist())
-        toks = toks.cpu().numpy()                     # [B, n_steps]
+        toks = self._decoder.scan(self.cur_token, self.page_table, self.positions,
+                                  n_steps, rids.tolist()).cpu().numpy()   # [B, n_steps]
         self.phase_s["decode"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 

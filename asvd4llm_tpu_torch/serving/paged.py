@@ -12,9 +12,15 @@ latents, the realized KV compression) and latent-V-only {k, tv}. Page 0 is
 a reserved scratch page: inactive batch rows point every logical page at
 it, so their (masked, ignored) writes never touch live data.
 
-Pools are updated in place with ``index_put_`` (the JAX package returns new
-arrays and donates the old ones): a decode step or an append writes its
-entries into the pools it was given and returns the same dicts.
+Pools are updated in place with ``index_copy_`` / ``index_put_`` (the JAX
+package returns new arrays and donates the old ones): a decode step or an
+append writes its entries into the pools it was given and returns the same
+dicts, so their addresses never change.
+
+``PagedDecoder`` is the counterpart of the JAX package's jitted
+``paged_decode_step`` / ``paged_decode_scan``: one ragged step over static
+token, position and page-table buffers, captured as a CUDA graph and
+replayed n times for n tokens (utils/graphs.py); the engine keeps one.
 
 Reads either go through the paged flash-decoding kernels (``use_pallas``,
 ops/paged_attention.py: kernel 6 for ``"kv"`` pools with RoPE and no k bias,
@@ -40,6 +46,7 @@ from asvd4llm_tpu_torch.ops.paged_attention import (
     _flat_rows as _flat_view, paged_dense_decode_attention,
     paged_latent_decode_attention,
 )
+from asvd4llm_tpu_torch.utils.graphs import StepGraph
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -71,11 +78,13 @@ def init_paged_pools(params, spec, num_pages: int, page_size: int,
 
 def _scatter_token(pool, page_table, positions, val):
     """Write one token's value per sequence in place: val [B, ...] lands at
-    (page_table[b, pos_b // P], pos_b % P)."""
+    (page_table[b, pos_b // P], pos_b % P), row pages·P + pos % P of the
+    pool seen as [NP·P, ...]."""
     P = pool.shape[1]
     pos = positions.long()
     pages = page_table.long().gather(1, (pos // P)[:, None])[:, 0]
-    pool.index_put_((pages, pos % P), val.to(pool.dtype))
+    pool.view(-1, *pool.shape[2:]).index_copy_(0, pages * P + pos % P,
+                                               val.to(pool.dtype))
     return pool
 
 
@@ -247,50 +256,134 @@ def _gumbel_noise(seed: int, rid: int, q: int, vocab: int):
     return (-torch.log(-torch.log(u.clamp_min(1e-300)))).float()
 
 
+def _sample_each(logits, noise, temperature: float, top_p: float):
+    """Rows sampled one at a time with their noise rows, so a row's result
+    never depends on the batch around it. logits, noise [B, V] -> [B]
+    int32."""
+    return torch.cat([_sample_rows(logits[i:i + 1], noise[i:i + 1], temperature, top_p)
+                      for i in range(logits.shape[0])])
+
+
 def sample_rows_keyed(logits, rids, positions, seed: int, temperature: float,
                       top_p: float):
     """Stateless per-(request, position) sampling: the token at sequence
     index q of request rid draws its noise from (seed, rid, q) alone, so
     stepwise and multi-step scheduling (any chunk size, any admission
-    order) emit the same tokens. Rows are sampled one at a time, so a row's
-    result never depends on the batch around it. logits [B, V]; rids and
-    positions: B ints -> [B] int32 on the logits' device."""
+    order) emit the same tokens. logits [B, V]; rids and positions: B ints
+    -> [B] int32 on the logits' device."""
     V = logits.shape[-1]
-    out = [_sample_rows(logits[i:i + 1],
-                        _gumbel_noise(seed, int(r), int(q), V)[None],
-                        temperature, top_p)
-           for i, (r, q) in enumerate(zip(rids, positions))]
-    return torch.cat(out)
+    noise = torch.stack([_gumbel_noise(seed, int(r), int(q), V)
+                         for r, q in zip(rids, positions)])
+    return _sample_each(logits, noise, temperature, top_p)
+
+
+def chunk_noise(seed: int, rids, positions, n_steps: int, vocab: int):
+    """The noise of n_steps decode steps drawn before them: [n_steps, B, V]
+    f32 on the CPU, noise[s, b] the noise of the token at sequence index
+    positions[b] + s + 1 of request rids[b] (step s writes at
+    positions[b] + s and emits the next token), as sample_rows_keyed draws
+    it row by row."""
+    return torch.stack([torch.stack([_gumbel_noise(seed, int(r), int(p) + s + 1, vocab)
+                                     for r, p in zip(rids, positions)])
+                        for s in range(n_steps)])
+
+
+class PagedDecoder:
+    """Ragged decode steps over static buffers, one CUDA graph per n_steps.
+
+    The buffers are ``token`` [B, 1], ``positions`` [B] int32 and
+    ``page_table`` [B, MP] int32, a step counter and, per n_steps, an output
+    buffer [B, n_steps] and (when sampling) the chunk's noise [n_steps, B,
+    V]. One step decodes ``token`` at ``positions`` over ``pools`` (written
+    in place, so their addresses are static), picks the next token greedily
+    or from the noise row of its step, stores it in the output column of
+    its step, and advances ``token``, ``positions`` and the counter. A scan
+    of n_steps is n_steps replays of the graph captured for n_steps
+    (captured on its first use). On a CPU device, or with ``eager``
+    (measurements only, as ``form=`` on the kernel wrappers), the same step
+    runs eagerly."""
+
+    def __init__(self, params, spec, pools, batch: int, max_pages: int, *,
+                 use_pallas=False, temperature=0.0, top_p=1.0, seed=0,
+                 eager=False):
+        dev = params["embed_tokens"].device
+        self.params, self.spec, self.pools = params, spec, pools
+        self.use_pallas, self.eager = use_pallas, eager
+        self.temperature, self.top_p, self.seed = float(temperature), float(top_p), int(seed)
+        self.token = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.positions = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.page_table = torch.zeros((batch, max_pages), dtype=torch.int32, device=dev)
+        self.step_i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graphs: dict = {}      # n_steps -> (StepGraph, out, noise or None)
+
+    def _build(self, n_steps: int):
+        B, dev = self.token.shape[0], self.token.device
+        out = torch.zeros((B, n_steps), dtype=torch.int64, device=dev)
+        noise = None
+        if self.temperature > 0:
+            noise = torch.zeros((n_steps, B, self.spec.vocab_size), dtype=torch.float32,
+                                device=dev)
+
+        def step():
+            logits, _ = paged_decode_step(self.params, self.spec, self.token, self.pools,
+                                          self.page_table, self.positions,
+                                          use_pallas=self.use_pallas)
+            if noise is None:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                rows = noise.index_select(0, self.step_i.reshape(1))[0]
+                nxt = _sample_each(logits, rows, self.temperature, self.top_p)
+            out.index_copy_(1, self.step_i.reshape(1), nxt[:, None].to(out.dtype))
+            self.token.copy_(nxt[:, None])
+            self.positions += 1
+            self.step_i += 1
+
+        state = [self.token, self.positions, self.step_i, out]
+        return StepGraph(step, state, eager=self.eager), out, noise
+
+    @torch.no_grad()
+    def scan(self, token, page_table, positions, n_steps: int, rids=None):
+        """n_steps decode steps from ``token`` [B, 1] at ``positions`` [B]
+        over ``page_table`` [B, MP] (host arrays or tensors, copied into
+        the static buffers). ``rids`` (B ints) key the sampling noise.
+        Returns the tokens [B, n_steps] on the device (the graph's output
+        buffer: read it before the next scan of n_steps)."""
+        B = self.token.shape[0]
+        self.token.copy_(torch.as_tensor(token).reshape(B, 1))
+        self.positions.copy_(torch.as_tensor(positions))
+        self.page_table.copy_(torch.as_tensor(page_table))
+        self.step_i.zero_()
+        if n_steps not in self.graphs:
+            # the capture's warm-up step samples from a zero noise buffer; it
+            # writes the pools as the first replay will, whatever it samples
+            self.graphs[n_steps] = self._build(n_steps)
+        graph, out, noise = self.graphs[n_steps]
+        if noise is not None:
+            # drawn on the host before the replays: the positions are known
+            rid_list = [0] * B if rids is None else [int(r) for r in rids]
+            noise.copy_(chunk_noise(self.seed, rid_list,
+                                    torch.as_tensor(positions).cpu().tolist(),
+                                    n_steps, self.spec.vocab_size))
+        graph.replay(n_steps)
+        return out
 
 
 @torch.no_grad()
 def paged_decode_scan(params, spec, token, pools, page_table, positions,
                       n_steps, use_pallas=False, temperature=0.0, top_p=1.0,
                       seed=0, rids=None):
-    """n_steps ragged decode steps with no host round trip between them
-    (greedy picks stay on the device; sampling reads the positions once).
-    Returns (tokens [B, n_steps], pools) — greedy at temperature 0,
-    position-keyed temperature/top-p sampling otherwise (the same tokens as
-    the engine's stepwise sampler). Rows that hit EOS mid-chunk keep
-    decoding; the engine drops their surplus tokens."""
-    B = token.shape[0]
-    rid_list = [0] * B if rids is None else [int(r) for r in rids]
-    pos_host = positions.cpu().tolist() if temperature > 0 else None
-    tok, pos, toks = token, positions, []
-    for step in range(n_steps):
-        logits, pools = paged_decode_step(params, spec, tok, pools, page_table,
-                                          pos, use_pallas=use_pallas)
-        if temperature > 0:
-            # this step writes at pos, so the emitted token's index is pos + 1
-            nxt = sample_rows_keyed(logits, rid_list,
-                                    [p + step + 1 for p in pos_host], seed,
-                                    temperature, top_p)
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        tok = nxt[:, None].to(token.dtype)
-        pos = pos + 1
-        toks.append(tok[:, 0])
-    return torch.stack(toks, dim=1), pools
+    """n_steps ragged decode steps with no host round trip between them,
+    through a PagedDecoder (on a CUDA device one graph, captured for this
+    call: a caller that scans repeatedly keeps one PagedDecoder, as the
+    engine does, and pays the capture once per n_steps). Returns (tokens
+    [B, n_steps], pools) — greedy at temperature 0, position-keyed
+    temperature/top-p sampling otherwise (the same tokens as the engine's
+    stepwise sampler). Rows that hit EOS mid-chunk keep decoding; the
+    engine drops their surplus tokens."""
+    dec = PagedDecoder(params, spec, pools, *page_table.shape, use_pallas=use_pallas,
+                       temperature=temperature, top_p=top_p, seed=seed)
+    toks = dec.scan(token, page_table, positions, n_steps, rids)
+    return toks.to(token.dtype).clone(), pools
 
 
 # ------------------------------------------------------ chunked prefill --

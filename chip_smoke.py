@@ -17,15 +17,23 @@ Phases:
            deployed factors, each followed by greedy decode, with the
            KV-cache target and int8 factors at the CLI's default rank_align
            (ranks padded to multiples of 16 at run time), followed by greedy
-           decode, and once with AWQ int4 fake-quant (PPL only). Each run's kernel launches are
-           counted from 0; the kernel each run exists for must be > 0;
+           decode, and once with AWQ int4 fake-quant (PPL only). Every
+           decode runs generate_on_device (one captured CUDA graph replayed
+           per token, the served path) and generate (eager steps) in turns,
+           which must emit the same tokens; the decode step is timed both
+           ways on the host clock and traced for device busy and idle
+           share, with the graph's capture time. Each run's kernel launches
+           are counted from 0 (a replay counts the launches its capture
+           made); the kernel each run exists for must be > 0;
   serve    the paged continuous-batching engine (PagedEngine, use_pallas,
            bf16 pools, automatic page size) on the weight-target and
            KV-target models of the main phase: dense pools (kernel 5),
            latent="v" (kernel 5, V-latent) with chunked prefill and the
            prefix cache, latent="kv" (kernel 6) with multi-step decode, and
-           latent="auto"; 8 requests of 64-1024 prompt tokens each. Needs
-           the main phase.
+           latent="auto"; 8 requests of 64-1024 prompt tokens each, through
+           the engine's captured decode graphs and with eager steps
+           (eager_steps=True), in turns, with the same tokens. Needs the
+           main phase.
 
 Exits non-zero without a CUDA device, and when any phase fails. The last
 line of standard output is the device record
@@ -413,7 +421,9 @@ def phase_kernels(torch, timer, record):
             emb = torch.cat([fr, fr], dim=-1)
             cos, sin = emb.cos().contiguous(), emb.sin().contiguous()
             kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
-            out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos, **kw)
+            # the position as the decode graph gives it: one int32 on the card
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos_t, **kw)
             form = la.latent_decode_attention.last_form
             ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
             torch.cuda.synchronize()
@@ -440,11 +450,11 @@ def phase_kernels(torch, timer, record):
                               for t in (tk, tv, a_k))
 
                 def new():
-                    return la._latent_attention_core(q, pk, pv, pa, cos, sin, pos,
+                    return la._latent_attention_core(q, pk, pv, pa, cos, sin, pos_t,
                                                      form="split_wgmma", **kw)
 
                 def old():
-                    return la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos,
+                    return la._latent_attention_core(q, tk, tv, a_k, cos, sin, pos_t,
                                                      form="tile32", **kw)
                 for fname, fn in (("split_wgmma", new), ("tile32", old)):
                     got = fn()
@@ -463,7 +473,8 @@ def phase_kernels(torch, timer, record):
                 turns = f"{k_ms * 1e3:.1f}/{o_ms * 1e3:.1f}/{o2_ms * 1e3:.1f}/{k2_ms * 1e3:.1f}"
                 k_ms, o_ms = (k_ms + k2_ms) / 2, (o_ms + o2_ms) / 2
                 line += (f" | form split_wgmma{' (ranks padded)' if Rk % 8 or Rv % 8 else ''}"
-                         f" {k_ms * 1e3:.1f} us (in turns new/old/old/new {turns}"
+                         f", position on the card, all {-(-T // la.SPLIT_KEYS)} chunks"
+                         f" launched: {k_ms * 1e3:.1f} us (in turns new/old/old/new {turns}"
                          f" us), form tile32 {o_ms * 1e3:.1f} us, plain"
                          f" {p_ms * 1e3:.1f} us, unfused+SDPA {l_ms * 1e3:.1f} us, bound"
                          f" {bms * 1e3:.1f} us ({by}: {nbytes / 1e6:.1f} MB,"
@@ -480,12 +491,15 @@ def phase_kernels(torch, timer, record):
                     extra[label] = dict(row, shape=f"B={B} H={H} KV={KV} hd={hd} T={T} "
                                         f"Rk={Rk} Rv={Rv} pos={pos} bf16")
             log(line)
+    log(f"  kernel 2 at B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543: {main['ms'] * 1e3:.1f}"
+        f" us with the position read on the card and all 5 chunks launched")
     record["latent_attention"] = {
         "name": "latent_attention", "route": "cuda",
         "source": "asvd4llm_tpu_torch/csrc/latent_attention.cu",
         "replaces": "asvd4llm_tpu/ops/pallas_latent_attention.py:284",
         **main,
-        "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 bf16, form split_wgmma",
+        "shape": "B=4 H=KV=32 hd=128 T=544 Rk=Rv=1024 pos=543 (int32 on the card) bf16, "
+                 "form split_wgmma",
         **extra,
     }
     phase_quant_kernels(torch, timer, record, failures)
@@ -733,17 +747,11 @@ KERNEL_NAMES = ("fused_lowrank", "latent_attention", "fused_lowrank_q8", "fused_
 
 
 def _counted():
-    """The wrapper that counts each kernel's launches, by kernel name."""
-    from asvd4llm_tpu_torch.ops import fused_lowrank as fl
-    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
-    from asvd4llm_tpu_torch.ops import latent_attention as la
-    from asvd4llm_tpu_torch.ops import paged_attention as pa
-    return {"fused_lowrank": fl.fused_lowrank_apply,
-            "latent_attention": la.latent_decode_attention,
-            "fused_lowrank_q8": fq.fused_lowrank_apply_q8,
-            "fused_lowrank_q4": fq.fused_lowrank_apply_q4,
-            "paged_dense_attention": pa.paged_dense_decode_attention,
-            "paged_latent_attention": pa.paged_latent_decode_attention}
+    """The wrapper that counts each kernel's launches, by kernel name (a
+    replayed CUDA graph adds the launches its capture made, once per
+    replay)."""
+    from asvd4llm_tpu_torch.utils.graphs import counted_kernels
+    return counted_kernels()
 
 
 def kernel_counts():
@@ -990,33 +998,61 @@ def run_cli(torch, ckpt, work, target_flags, sizes, device):
     return out
 
 
-def greedy(torch, out, prompt, *, latent_kv):
-    """Greedy decode through generate(..., use_pallas=True); checks the
-    shape and the token range, returns (tokens, seconds)."""
-    from asvd4llm_tpu_torch.eval.generate import generate
-    t0 = time.perf_counter()
-    toks = generate(out["params"], out["spec"], prompt,
-                    max_new_tokens=NEW_TOKENS, latent_kv=latent_kv,
-                    use_pallas=True)
-    secs = time.perf_counter() - t0
+def _check_tokens(toks, prompt, vocab):
     B, S = prompt.shape
     if toks.shape != (B, S + NEW_TOKENS) or (toks[:, :S] != prompt).any() \
-            or toks.min() < 0 or toks.max() >= out["spec"].vocab_size:
-        raise AssertionError(f"generate returned a wrong result, shape {toks.shape}")
-    log(f"  generate(batch {B}, prompt {S}, {NEW_TOKENS} new, latent_kv="
-        f"{latent_kv}, use_pallas=True): {secs:.2f} s, "
-        f"{B * NEW_TOKENS / secs:.1f} tok/s with prefill; first row's new tokens "
-        f"{toks[0, S:S + 8].tolist()}...")
-    return toks, secs
+            or toks.min() < 0 or toks.max() >= vocab:
+        raise AssertionError(f"generation returned a wrong result, shape {toks.shape}")
+
+
+def greedy(torch, out, prompt, *, latent_kv):
+    """Greedy decode with use_pallas=True, in turns: generate_on_device (the
+    served path: one captured CUDA graph replayed per token), generate
+    (eager steps and a host read per token), generate, generate_on_device.
+    All four must emit the same tokens; returns them."""
+    from asvd4llm_tpu_torch.eval.generate import generate, generate_on_device
+    B, S = prompt.shape
+    secs = {"graph": [], "eager": []}
+    runs = []
+    dev = out["params"]["embed_tokens"].device
+    for path, fn in (("graph", generate_on_device), ("eager", generate),
+                     ("eager", generate), ("graph", generate_on_device)):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        toks = fn(out["params"], out["spec"], prompt, max_new_tokens=NEW_TOKENS,
+                  latent_kv=latent_kv, use_pallas=True)
+        _sync(torch, dev)
+        secs[path].append(time.perf_counter() - t0)
+        _check_tokens(toks, prompt, out["spec"].vocab_size)
+        runs.append(toks)
+    first = runs[0]
+    if not all(np.array_equal(t, first) for t in runs):
+        same = [[int(np.array_equal(a, b)) for b in runs] for a in runs]
+        cols = [int(np.argmax((t != first).any(axis=0))) - S for t in runs[1:]]
+        raise AssertionError(f"generate_on_device and generate disagree: runs "
+                             f"graph/eager/eager/graph equal pairwise {same}; first "
+                             f"differing new token of runs 2-4 vs run 1: {cols}")
+    g, e = (float(np.mean(secs[k])) for k in ("graph", "eager"))
+    log(f"  generate_on_device vs generate (batch {B}, prompt {S}, {NEW_TOKENS} new, "
+        f"latent_kv={latent_kv}, use_pallas=True), in turns graph/eager/eager/graph "
+        f"{'/'.join(f'{t:.3f}' for t in (secs['graph'][0], *secs['eager'], secs['graph'][1]))}"
+        f" s (prefill and, for the graph, its capture included): graph {g:.3f} s "
+        f"{B * NEW_TOKENS / g:.1f} tok/s, eager {e:.3f} s {B * NEW_TOKENS / e:.1f} tok/s; "
+        f"identical tokens, first row's new {first[0, S:S + 8].tolist()}...")
+    return first
 
 
 def step_check(torch, out, prompt, *, latent_kv, steps=16):
     """One decode step after the prompt, with the kernels and with the plain
     tensor path on the same caches: the logits must agree within a bf16
     tolerance (5% of the largest logit; bf16 keeps 8 bits of mantissa and a
-    step rounds some thirty times). Then times `steps` kernel steps."""
+    step rounds some thirty times). Then the step on the host clock as
+    eager launches and as a replay of its captured CUDA graph, in turns
+    (eager, graph, graph, eager, `steps` // 4 steps each), each from its
+    own copy of the prefilled caches, and a traced window of `steps` // 2
+    steps of each. Returns {path: (step ms, device busy ms, idle share)}."""
     from asvd4llm_tpu_torch.eval.generate import (
-        decode_step, init_caches, prefill_host,
+        DecodeGraph, decode_step, init_caches, prefill_host,
     )
     from asvd4llm_tpu_torch.ops.lowrank import align_ranks
 
@@ -1025,7 +1061,7 @@ def step_check(torch, out, prompt, *, latent_kv, steps=16):
     dev = params["embed_tokens"].device
     ids = torch.as_tensor(prompt, device=dev)
     B, S = ids.shape
-    caches = init_caches(params, spec, B, S + steps + 1, params["embed_tokens"].dtype,
+    caches = init_caches(params, spec, B, S + steps, params["embed_tokens"].dtype,
                          latent=latent_kv, device=dev)
     logits, caches = prefill_host(params, spec, ids, caches, latent=latent_kv)
     tok = torch.argmax(logits, dim=-1)[:, None]
@@ -1044,26 +1080,37 @@ def step_check(torch, out, prompt, *, latent_kv, steps=16):
     if err > tol:
         raise AssertionError("decode step with the kernels disagrees with the plain path")
     kernels_at_path_shapes(torch, params, spec, caches, S)
-    sync =torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    state = {"tok": tok, "caches": caches, "pos": S}
+    state = {"tok": tok, "caches": [{k: v.clone() for k, v in c.items()} for c in caches],
+             "pos": S}
 
-    def run(n):
+    def eager(n):
         for _ in range(n):
             logits, state["caches"] = decode_step(params, spec, state["tok"],
                                                   state["caches"], state["pos"],
                                                   use_pallas=True)
             state["tok"] = torch.argmax(logits, dim=-1)[:, None]
             state["pos"] += 1
-    sync()
-    t0 = time.perf_counter()
-    run(steps // 2)
-    sync()
-    ms = (time.perf_counter() - t0) * 1e3 / (steps // 2)
-    log(f"  decode step with the kernels: {ms:.2f} ms on the host clock "
-        f"({B * 1e3 / ms:.1f} tok/s at batch {B}, cache {S + steps + 1})")
-    if dev.type == "cuda":
-        decode_breakdown(torch, lambda: run(steps - steps // 2), steps - steps // 2)
-    return ms
+    dg = DecodeGraph(params, spec, tok, caches, S, steps + 1, use_pallas=True)
+    run = {"eager": eager, "graph": dg.replay}
+    q = steps // 4
+    host = {"eager": 0.0, "graph": 0.0}
+    for path in ("eager", "graph", "graph", "eager"):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        run[path](q)
+        _sync(torch, dev)
+        host[path] += (time.perf_counter() - t0) * 1e3 / (2 * q)
+    result = {}
+    for path in ("eager", "graph"):
+        busy, idle = decode_breakdown(torch, lambda: run[path](steps // 2), steps // 2,
+                                      f"{path} decode") if dev.type == "cuda" else (None, None)
+        result[path] = (host[path], busy, idle)
+    log(f"  decode step with the kernels, host clock: eager {host['eager']:.3f} ms, graph "
+        f"replay {host['graph']:.3f} ms ({B * 1e3 / host['graph']:.1f} tok/s at batch {B}, "
+        f"cache {S + steps}); graph capture {dg.graph.capture_s * 1e3:.1f} ms (warm-up "
+        f"step included)")
+    result["capture_ms"] = dg.graph.capture_s * 1e3
+    return result
 
 
 def kernels_at_path_shapes(torch, params, spec, caches, pos):
@@ -1146,10 +1193,11 @@ def kernels_at_path_shapes(torch, params, spec, caches, pos):
                                  f"at layer {i}")
 
 
-def decode_breakdown(torch, run, steps):
+def decode_breakdown(torch, run, steps, label="decode"):
     """Where a decode step's device time goes: GPU activity by kernel name
     from a profiler trace of `steps` steps, and the device's idle share of
-    the traced wall time."""
+    the traced wall time. Returns (device busy ms per step, idle share), or
+    (None, None) when the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1164,13 +1212,15 @@ def decode_breakdown(torch, run, steps):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     if busy <= 0:
-        log("  decode breakdown: the profiler trace holds no device activity")
-        return
-    log(f"  decode breakdown over {steps} steps: device busy {busy / steps:.3f} ms "
+        log(f"  {label} breakdown: the profiler trace holds no device activity")
+        return None, None
+    idle = max(0.0, 1 - busy / wall)
+    log(f"  {label} breakdown over {steps} steps: device busy {busy / steps:.3f} ms "
         f"per step, traced wall {wall / steps:.3f} ms per step (profiler on), "
-        f"device idle share {max(0.0, 1 - busy / wall):.3f}")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        f"device idle share {idle:.3f}")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {t / steps:.4f} ms/step {100 * t / busy:5.1f}%  {name[:90]}")
+    return busy / steps, idle
 
 
 WEIGHT_TARGET = ["--param_ratio_target", "0.9", "--rank_align", "128"]
@@ -1203,6 +1253,7 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
     prompt = np.random.RandomState(1).randint(
         0, config["vocab_size"], (DECODE_BATCH, PROMPT_LEN))
     counts_by_run = {}
+    steps = {}
     for run, flags, latent_kv, _ in MAIN_RUNS:
         decode = "PPL only" if latent_kv is None else \
             f"then generate with {'the latent' if latent_kv else 'dense'} caches"
@@ -1220,10 +1271,19 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
             launches[k] = launches.get(k, 0) + v
         counts_by_run[run] = counts
         if latent_kv is not None:
-            step_check(torch, out, prompt, latent_kv=latent_kv)
+            steps[run] = step_check(torch, out, prompt, latent_kv=latent_kv)
         if models is not None and run in SERVE_MODELS:
             models[run] = (out["params"], out["spec"])
         del out
+    log("decode steps, graph vs eager (step ms on the host clock / device busy ms per step"
+        " / idle share on the host clock, 1 - busy / step / idle share in the traced "
+        "window, profiler on; capture ms):")
+    for run, r in steps.items():
+        log(f"  {run}: " + "; ".join(
+            f"{p} {r[p][0]:.3f} / " + ("not measured" if r[p][1] is None else
+                                      f"{r[p][1]:.3f} / {1 - r[p][1] / r[p][0]:.3f} / "
+                                      f"{r[p][2]:.3f}")
+            for p in ("graph", "eager")) + f"; capture {r['capture_ms']:.1f}")
     return counts_by_run
 
 
@@ -1355,19 +1415,29 @@ def paged_kernels_at_path_shapes(torch, params, spec, eng):
                                  f"at layer {i}")
 
 
-def serve_probe(torch, params, spec, latent, use_pallas, opts, prompts, steps=8):
-    """A probe engine with the first max_batch prompts prefilled: its first
-    paged_decode_step with the kernels against the plain gather path on
-    cloned pools (5% of the largest logit, as step_check), the paged kernels
-    against their plain versions at its shapes, then the decode-step time
-    on the host clock and a traced decode window."""
-    from asvd4llm_tpu_torch.serving import PagedEngine, paged_decode_step
+def _probe_engine(torch, params, spec, latent, use_pallas, opts, prompts, steps, eager):
+    from asvd4llm_tpu_torch.serving import PagedEngine
     eng = PagedEngine(params, spec, latent=latent, use_pallas=use_pallas,
-                      dtype=torch.bfloat16, **SERVE_ENGINE, **opts)
+                      dtype=torch.bfloat16, eager_steps=eager, **SERVE_ENGINE, **opts)
     for p in prompts[:SERVE_ENGINE["max_batch"]]:
         eng.add_request(p, max_new_tokens=4 * steps)
     while any(r is not None and not r.decoding for r in eng.slots):
         eng._prefill_tick()
+    return eng
+
+
+def serve_probe(torch, params, spec, latent, use_pallas, opts, prompts, steps=8):
+    """A probe engine with the first max_batch prompts prefilled: its first
+    paged_decode_step with the kernels against the plain gather path on
+    cloned pools (5% of the largest logit, as step_check), the paged kernels
+    against their plain versions at its shapes; then the engine step on the
+    host clock through the captured graph and, on a second probe engine
+    with the same prompts, as eager launches (eager_steps), in turns (graph,
+    eager, eager, graph, `steps` // 2 steps each), and a traced window of
+    `steps` steps of each. Returns {path: (step ms, device busy ms, idle
+    share)}."""
+    from asvd4llm_tpu_torch.serving import paged_decode_step
+    eng = _probe_engine(torch, params, spec, latent, use_pallas, opts, prompts, steps, False)
     active = [r for r in eng.slots if r is not None]
     eng._grow_pages(active, 1)
     tok, pt, pos = (eng._dev(a) for a in (eng.cur_token, eng.page_table, eng.positions))
@@ -1391,29 +1461,73 @@ def serve_probe(torch, params, spec, latent, use_pallas, opts, prompts, steps=8)
         raise AssertionError("the paged decode step with the kernels disagrees with the "
                              "gather path")
     paged_kernels_at_path_shapes(torch, params, spec, eng)
+    engines = {"graph": eng, "eager": _probe_engine(torch, params, spec, latent, use_pallas,
+                                                    opts, prompts, steps, True)}
+    for e in engines.values():   # the graph engine captures its step here, untimed
+        e.step()
+    capture_ms = eng._decoder.graphs[1][0].capture_s * 1e3
+    host = {"graph": 0.0, "eager": 0.0}
+    for path in ("graph", "eager", "eager", "graph"):
+        _sync(torch, eng.device)
+        t0 = time.perf_counter()
+        for _ in range(steps // 2):
+            engines[path].step()
+        _sync(torch, eng.device)
+        host[path] += (time.perf_counter() - t0) * 1e3 / steps
+    if [r.tokens for r in engines["graph"].slots] != [r.tokens for r in engines["eager"].slots]:
+        raise AssertionError("the probe's graph and eager engine steps emitted other tokens")
+    result = {}
+    for path, e in engines.items():
+        busy, idle = decode_breakdown(torch, lambda: [e.step() for _ in range(steps)], steps,
+                                      f"engine {path} step") \
+            if eng.device.type == "cuda" else (None, None)
+        result[path] = (host[path], busy, idle)
+    log(f"  engine decode step (batch {len(active)}, step() with its host work), host "
+        f"clock in turns: graph {host['graph']:.3f} ms, eager {host['eager']:.3f} ms; "
+        f"identical tokens; capture of the step {capture_ms:.1f} ms (warm-up included)")
+    return result
+
+
+def _serve_traffic_run(torch, params, spec, latent, use_pallas, opts, chunk, prompts, budgets,
+                       eager):
+    """The 8-request traffic through a fresh engine: (engine, rids, wall s)."""
+    from asvd4llm_tpu_torch.serving import PagedEngine
+    eng = PagedEngine(params, spec, latent=latent, use_pallas=use_pallas,
+                      dtype=torch.bfloat16, eager_steps=eager, **SERVE_ENGINE, **opts)
     _sync(torch, eng.device)
     t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    eng.run(chunk=chunk)
     _sync(torch, eng.device)
-    ms = (time.perf_counter() - t0) * 1e3 / steps
-    log(f"  engine decode step (batch {len(active)}, step() with its host work): "
-        f"{ms:.2f} ms on the host clock")
-    if eng.device.type == "cuda":
-        decode_breakdown(torch, lambda: [eng.step() for _ in range(steps)], steps)
-    return ms
+    return eng, rids, time.perf_counter() - t0
+
+
+def _serve_line(path, eng, n_req, wall, probe):
+    st = eng.stats()
+    n_tok = st["tokens_generated"]
+    step_ms, busy, idle = probe
+    return (f"  {path}: {n_req} requests, {n_tok} tokens in {wall:.3f} s: "
+            f"{n_tok / wall:.1f} tok/s with prefill; TTFT p50 {st['ttft_s']['p50']:.3f} s "
+            f"p90 {st['ttft_s']['p90']:.3f} s; TPOT p50 {st['tpot_s']['p50'] * 1e3:.2f} ms "
+            f"p90 {st['tpot_s']['p90'] * 1e3:.2f} ms; phase_s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items())
+            + f"; engine step {step_ms:.3f} ms, device busy "
+            + ("not measured" if busy is None else
+               f"{busy:.3f} ms, idle share {1 - busy / step_ms:.3f} on the host clock "
+               f"({idle:.3f} in the traced window)"))
 
 
 def phase_serve(torch, models, launches):
     """The SERVE_RUNS: for each, a probe (first-step and kernel checks,
-    decode-step time and breakdown), then the timed run of the 8-request
-    traffic with the kernel counts set to 0 just before it and read just
-    after; every request must emit its budget of in-range tokens, and the
-    run's kernel must have launched. Agreement with per-request flat
-    generate is logged (bf16 argmax on random weights ties). Returns
-    {run: counts}."""
+    engine step time and breakdown through the graph and eagerly), then the
+    8-request traffic through the engine's captured graphs (the served
+    path) with the kernel counts set to 0 just before it and read just
+    after, and the same traffic with eager steps, in turns (graph, eager,
+    eager, graph): the four runs must emit the same tokens; every request
+    must emit its budget of in-range tokens, and the run's kernel must have
+    launched. Agreement with per-request flat generate is logged (bf16
+    argmax on random weights ties). Returns {run: counts}."""
     from asvd4llm_tpu_torch.eval.generate import generate
-    from asvd4llm_tpu_torch.serving import PagedEngine
     counts_by_run = {}
     for run, model, latent, use_pallas, opts, chunk, kernel in SERVE_RUNS:
         params, spec = models[model]
@@ -1422,23 +1536,20 @@ def phase_serve(torch, models, launches):
             f"use_pallas={use_pallas}, bf16 pools, automatic page, {SERVE_ENGINE}, "
             f"{opts}), run(chunk={chunk}); prompts {[len(p) for p in prompts]}, "
             f"budgets {budgets}")
-        step_ms = serve_probe(torch, params, spec, latent, use_pallas, opts, prompts)
-        eng = PagedEngine(params, spec, latent=latent, use_pallas=use_pallas,
-                          dtype=torch.bfloat16, **SERVE_ENGINE, **opts)
-        log(f"  engine: latent={eng.latent!r} use_pallas={eng.use_pallas} page_size "
-            f"{eng.page_size}, {eng.pools[0][next(iter(eng.pools[0]))].shape[0]} pages, "
-            f"pool keys {[sorted(p) for p in eng.pools]}")
+        probe = serve_probe(torch, params, spec, latent, use_pallas, opts, prompts)
+        args = (torch, params, spec, latent, use_pallas, opts, chunk, prompts, budgets)
         reset_kernel_counts()
-        _sync(torch, eng.device)
-        t0 = time.perf_counter()
-        rids = [eng.add_request(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
-        eng.run(chunk=chunk)
-        _sync(torch, eng.device)
-        wall = time.perf_counter() - t0
+        eng, rids, wall = _serve_traffic_run(*args, False)
         counts = kernel_counts()
+        forms = form_counts()
         counts_by_run[run] = counts
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        log(f"  engine: latent={eng.latent!r} use_pallas={eng.use_pallas} page_size "
+            f"{eng.page_size}, {eng.pools[0][next(iter(eng.pools[0]))].shape[0]} pages, "
+            f"pool keys {[sorted(p) for p in eng.pools]}; decode graphs captured (n_steps:"
+            f" capture ms) " + ", ".join(f"{n}: {g[0].capture_s * 1e3:.1f}"
+                                        for n, g in sorted(eng._decoder.graphs.items())))
         results = [eng.result(r) for r in rids]
         for res, n in zip(results, budgets):
             if len(res) != n or res.min() < 0 or res.max() >= spec.vocab_size:
@@ -1446,14 +1557,20 @@ def phase_serve(torch, models, launches):
                                      f"tokens out of range")
         st = eng.stats()
         n_tok = st["tokens_generated"]
-        log(f"  {len(rids)} requests, {n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} "
-            f"tok/s with prefill; TTFT p50 {st['ttft_s']['p50']:.3f} s p90 "
-            f"{st['ttft_s']['p90']:.3f} s; TPOT p50 {st['tpot_s']['p50'] * 1e3:.2f} ms p90 "
-            f"{st['tpot_s']['p90'] * 1e3:.2f} ms; phase_s "
-            + ", ".join(f"{k} {v:.3f}" for k, v in st["phase_s"].items())
-            + f"; prefix tokens skipped {st['prefix_tokens_skipped']}; decode step "
-            f"{step_ms:.2f} ms")
-        forms = form_counts()
+        runs = [("graph", eng, wall)]
+        for path in ("eager", "eager", "graph"):
+            e, r2, w = _serve_traffic_run(*args, path == "eager")
+            if [e.result(r).tolist() for r in r2] != [x.tolist() for x in results]:
+                raise AssertionError(f"the {path} engine emitted other tokens than the "
+                                     f"graph engine")
+            runs.append((path, e, w))
+        for path, e, w in runs:
+            log(_serve_line(path, e, len(rids), w, probe[path]))
+        tps = {p: float(np.mean([n_tok / w for q, _, w in runs if q == p]))
+               for p in ("graph", "eager")}
+        log(f"  in turns graph/eager/eager/graph, identical tokens; mean tok/s with "
+            f"prefill graph {tps['graph']:.1f}, eager {tps['eager']:.1f}; prefix tokens "
+            f"skipped {st['prefix_tokens_skipped']}")
         log(f"  kernel launches in this run: {counts}; by form: {forms}")
         check_forms(run, SERVE_FORMS.get(run, {}), forms)
         if opts.get("prefix_cache") and st["prefix_tokens_skipped"] <= 0:
@@ -1470,7 +1587,7 @@ def phase_serve(torch, models, launches):
             same += int((flat == res).sum())
         log(f"  agreement with per-request flat generate: {same}/{n_tok} tokens "
             f"(logged, not required)")
-        del eng
+        del eng, runs
     return counts_by_run
 
 

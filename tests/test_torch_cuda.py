@@ -268,17 +268,18 @@ def test_latent_attention_padded_ranks_take_split_form(cuda, B, T, pos):
         torch.testing.assert_close(out[..., :Rv], ref, atol=tol, rtol=tol)
 
 
-def _tiny_lowrank_llama(device):
-    """A 2-layer Llama with low-rank q/k/v/down leaves, f32 on `device`."""
+def _tiny_lowrank_llama(device, head_dim=32, dtype=torch.float32):
+    """A 2-layer Llama with low-rank q/k/v/down leaves on `device` (4 heads
+    of `head_dim`, factorized in f32, then cast to `dtype`)."""
     from asvd4llm_tpu_torch.models.convert import params_from_numpy, params_to_numpy
     from asvd4llm_tpu_torch.models.init import init_params
     from asvd4llm_tpu_torch.models.registry import get_linear, lowrank_leaf, set_linear
     from asvd4llm_tpu_torch.models.spec import llama_spec
     from asvd4llm_tpu_torch.ops.asvd import factorize_linear
 
-    spec = llama_spec(vocab_size=128, hidden_size=128, intermediate_size=256,
-                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
-                      max_position_embeddings=64)
+    spec = llama_spec(vocab_size=128, hidden_size=4 * head_dim,
+                      intermediate_size=8 * head_dim, num_layers=2, num_heads=4,
+                      num_kv_heads=2, head_dim=head_dim, max_position_embeddings=64)
     params = init_params(spec, torch.Generator().manual_seed(0), dtype=torch.float32)
     for i in range(2):
         for key in ("q_proj", "k_proj", "v_proj", "down_proj"):
@@ -286,7 +287,7 @@ def _tiny_lowrank_llama(device):
             leaf = get_linear(params, spec, name)
             f = factorize_linear(leaf["w"], leaf["b"], 0.6, backend="exact")
             params = set_linear(params, spec, name, lowrank_leaf(f.A, f.B, f.bias))
-    return params_from_numpy(params_to_numpy(params), device=device), spec
+    return params_from_numpy(params_to_numpy(params), device=device, dtype=dtype), spec
 
 
 def decode_step_kernels_vs_plain(device):
@@ -771,3 +772,159 @@ def test_paged_engine_kernels_match_gather_path_on_card(cuda, mode):
         assert (counter.launches > n0) == up
         outs.append([eng.result(r).tolist() for r in rids])
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------ on-device decode (CUDA graphs)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sliding", [0, 100])
+def test_latent_attention_position_on_card_at_every_step(cuda, sliding):
+    """Kernel 2's split form with its position as one int32 on the card, at
+    every position of one decode over T=300 (three 128-key chunks, the last
+    ragged; the same tensor advanced in place), against the plain version;
+    then one launch captured into a CUDA graph at position 0 and replayed
+    after the position passed each chunk boundary."""
+    B, H, KV, hd, T, Rk, Rv = 2, 8, 2, 64, 300, 64, 48
+    rng = np.random.RandomState(sliding + 1)
+    bf = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        _randn(rng, *shape, scale=scale)).to(cuda, torch.bfloat16)
+    q, tk, tv = bf(B, H, hd), bf(B, T, Rk, scale=0.5), bf(B, T, Rv, scale=0.5)
+    a_k = bf(KV * hd, Rk, scale=Rk ** -0.5)
+    ang = torch.from_numpy(_randn(rng, T, hd)).to(cuda)
+    cos, sin = ang.cos().contiguous(), ang.sin().contiguous()
+    kw = dict(scale=hd ** -0.5, softcap=0.0, sliding=sliding, kv_heads=KV)
+    p = torch.zeros((), dtype=torch.int32, device=cuda)
+    tol = TOL["bfloat16"]
+    for pos in range(T):
+        p.fill_(pos)
+        out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, p, **kw)
+        assert la.latent_decode_attention.last_form == "split_wgmma"
+        ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol, msg=f"position {pos}")
+    p.zero_()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        la._latent_attention_core(q, tk, tv, a_k, cos, sin, p, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = la._latent_attention_core(q, tk, tv, a_k, cos, sin, p, **kw)
+    for pos in (0, 127, 128, 200, 255, 256, 299):
+        p.fill_(pos)
+        graph.replay()
+        ref = la.latent_attention_reference(q, tk, tv, a_k, cos, sin, pos, **kw)
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol, msg=f"replay at {pos}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [False, "kv", "v"])
+def test_generate_on_device_matches_generate_on_card(cuda, mode):
+    """generate_on_device (a captured decode step replayed per token) emits
+    generate's tokens (eager steps), f32, with the kernels; the launch
+    counters count each replay: the graph path launches what the eager path
+    does plus its one warm-up step."""
+    from asvd4llm_tpu_torch.eval.generate import generate, generate_on_device
+    params, spec = _tiny_lowrank_llama(cuda)
+    prompt = np.random.RandomState(2).randint(0, 128, (2, 9))
+    kw = dict(max_new_tokens=8, latent_kv=mode, use_pallas=True)
+    n0 = (fl.fused_lowrank_apply.launches, la.latent_decode_attention.launches)
+    eager = generate(params, spec, prompt, **kw)
+    n1 = (fl.fused_lowrank_apply.launches, la.latent_decode_attention.launches)
+    graph = generate_on_device(params, spec, prompt, **kw)
+    n2 = (fl.fused_lowrank_apply.launches, la.latent_decode_attention.launches)
+    np.testing.assert_array_equal(graph, eager)
+    # kernel 1 on q, k, v, down of each layer but the k/v that go to latents;
+    # kernel 2 on each latent layer
+    per_step = ({False: 8, "v": 6, "kv": 4}[mode], 2 if mode == "kv" else 0)
+    for k in range(2):
+        assert n1[k] - n0[k] == 7 * per_step[k]          # 7 eager decode steps
+        assert n2[k] - n1[k] == 8 * per_step[k]          # warm-up + 7 replays
+
+
+@pytest.mark.gpu
+def test_generate_on_device_replays_past_a_chunk_boundary(cuda):
+    """bf16, head_dim 64, latent {tk, tv} caches: kernel 2 takes its split
+    form, and the decode runs from position 120 past the 128-key chunk
+    boundary. The replayed graph emits the eager loop's tokens and stops
+    early on EOS as the host loop does."""
+    from asvd4llm_tpu_torch.eval.generate import generate, generate_on_device
+    params, spec = _tiny_lowrank_llama(cuda, head_dim=64, dtype=torch.bfloat16)
+    prompt = np.random.RandomState(4).randint(0, 128, (2, 120))
+    kw = dict(max_new_tokens=16, latent_kv=True, use_pallas=True)
+    forms0 = dict(la.latent_decode_attention.form_launches)
+    eager = generate(params, spec, prompt, **kw)
+    graph = generate_on_device(params, spec, prompt, **kw)
+    np.testing.assert_array_equal(graph, eager)
+    assert la.latent_decode_attention.form_launches.get("split_wgmma", 0) > \
+        forms0.get("split_wgmma", 0)
+    eos = int(eager[0, 120 + 10])
+    np.testing.assert_array_equal(
+        generate_on_device(params, spec, prompt, eos_token_id=eos, **kw),
+        generate(params, spec, prompt, eos_token_id=eos, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [False, "v", "kv"])
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_paged_engine_graph_matches_eager_steps_on_card(cuda, mode, chunk):
+    """The engine's captured decode step (one graph per n_steps) emits the
+    tokens of its eager steps (eager_steps=True), greedy and sampled, with
+    admission and retirement mid-run; the paged kernel's counter counts the
+    replays."""
+    from asvd4llm_tpu_torch.ops import paged_attention as pa
+    from asvd4llm_tpu_torch.serving import PagedEngine
+    params, spec = _tiny_lowrank_llama(cuda)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 128, (n,)) for n in (7, 19, 12)]
+    counter = pa.paged_latent_decode_attention if mode == "kv" \
+        else pa.paged_dense_decode_attention
+    for sample in ({}, dict(temperature=0.8, top_p=0.9, seed=3)):
+        outs, launched = [], []
+        for eager in (True, False):
+            eng = PagedEngine(params, spec, max_batch=2, page_size=8, num_pages=32,
+                              max_pages_per_seq=6, latent=mode, use_pallas=True,
+                              eager_steps=eager, **sample)
+            n0 = counter.launches
+            rids = [eng.add_request(p, max_new_tokens=n) for p, n in zip(prompts, (9, 5, 7))]
+            eng.run(chunk=chunk)
+            launched.append(counter.launches - n0)
+            outs.append([eng.result(r).tolist() for r in rids])
+        assert outs[0] == outs[1]
+        # the graph path adds one warm-up step (one launch per layer) to the
+        # replays of its one captured n_steps
+        assert launched[1] - launched[0] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "f32", "q8", "q4"])
+def test_split_k_forms_give_the_same_bits_every_run(cuda, kind):
+    """The split-K forms of kernels 1, 3 and 4 sum their partials in
+    fixed-point accumulators with integer atomics, so repeated calls give
+    the same bits whatever order the blocks finish in (a decode replayed
+    from a CUDA graph emits the eager loop's tokens)."""
+    from asvd4llm_tpu_torch.ops import fused_lowrank_q as fq
+    from asvd4llm_tpu_torch.ops.quant import quantize_to_int
+    rng = np.random.RandomState(11)
+    M, K, N, R = 4, 4096, 4096, 1920
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    x = torch.from_numpy(_randn(rng, M, K)).to(cuda, dt)
+    a = torch.from_numpy(_randn(rng, N, R, scale=R ** -0.5)).to(cuda)
+    b = torch.from_numpy(_randn(rng, R, K, scale=K ** -0.5)).to(cuda)
+    if kind in ("bf16", "f32"):
+        def call():
+            return fl.fused_lowrank_apply(x, a.to(dt), b.to(dt), None)
+    elif kind == "q8":
+        a8, aq = quantize_to_int(a, 8)
+        b8, bq = quantize_to_int(b, 8)
+
+        def call():
+            return fq.fused_lowrank_apply_q8(x, a8, aq, b8, bq, None)
+    else:
+        x, q, _ = _q4_inputs(rng, cuda, dt, M, K, N, R, False, 128, False)
+
+        def call():
+            return fq.fused_lowrank_apply_q4(x, *q, None, group=128)
+    first = call()
+    for _ in range(5):
+        assert torch.equal(call(), first)

@@ -5,7 +5,7 @@ keys into chunks, keeps each chunk's max, denominator and T(p)·tv sum, and
 combines the chunks afterwards. Its plain version,
 `latent_attention_split_reference`, is held here against the JAX package's
 `_latent_attention_core` (the Pallas kernel in interpret mode), including
-chunks that hold no live key. The `_form` helpers of the kernel 1 and 2
+chunks that hold no live key (the kernel launches every chunk of T). The `_form` helpers of the kernel 1 and 2
 wrappers must pick the new forms at the shapes `chip_smoke.py` drives and
 the earlier forms for f32 and unaligned shapes. `align_ranks` pads the
 ranks of a model to multiples of 8 for the new forms, which must change no
@@ -41,12 +41,13 @@ from asvd4llm_tpu_torch.ops.lowrank import align_ranks, lowrank_apply, pad_rank 
 from test_torch_decoder import BASE, both_specs, random_tree  # noqa: E402
 
 SPLIT_CASES = {
-    # name: (B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding, chunk, window_only)
-    "mha_4_chunks": (2, 4, 4, 16, 128, 24, 20, 127, 0.0, 0, 32, False),
-    "gqa4_chunks_past_pos": (2, 8, 2, 16, 128, 24, 20, 70, 0.0, 0, 32, False),
-    "sliding_empties_chunks": (1, 4, 2, 16, 128, 16, 12, 120, 0.0, 20, 32, False),
-    "softcap_ragged_chunk": (2, 4, 1, 16, 96, 24, 20, 90, 30.0, 0, 40, False),
-    "kernel_chunk_window": (1, 4, 2, 16, 384, 24, 20, 300, 0.0, 100, la.SPLIT_KEYS, True),
+    # name: (B, H, KV, hd, T, Rk, Rv, pos, softcap, sliding, chunk)
+    "mha_4_chunks": (2, 4, 4, 16, 128, 24, 20, 127, 0.0, 0, 32),
+    "gqa4_chunks_past_pos": (2, 8, 2, 16, 128, 24, 20, 70, 0.0, 0, 32),
+    "sliding_empties_chunks": (1, 4, 2, 16, 128, 16, 12, 120, 0.0, 20, 32),
+    "softcap_ragged_chunk": (2, 4, 1, 16, 96, 24, 20, 90, 30.0, 0, 40),
+    # the kernel's chunk, the first chunk before the window
+    "kernel_chunk_window": (1, 4, 2, 16, 384, 24, 20, 300, 0.0, 100, la.SPLIT_KEYS),
 }
 
 
@@ -65,15 +66,13 @@ def test_split_reference_matches_pallas_core(case):
     """The per-chunk (max, den, numerator) + combine of the split form
     equals the TPU kernel's online softmax; chunks past pos or before the
     sliding window have den = 0 and drop out of the combine."""
-    B, H, KV, hd, T, Rk, Rv, pos, cap, sw, chunk, window_only = SPLIT_CASES[case]
+    B, H, KV, hd, T, Rk, Rv, pos, cap, sw, chunk = SPLIT_CASES[case]
     q, tk, tv, a_k, cos, sin = _inputs(len(case), B, H, KV, hd, T, Rk, Rv)
     kw = dict(scale=hd ** -0.5, softcap=cap, sliding=sw, kv_heads=KV)
     ref = np.asarray(j_core(*(jnp.asarray(v) for v in (q, tk, tv, a_k, cos, sin)), pos,
                             head_dim=hd, tt=32, interpret=True, **kw))
-    chunks = la.split_chunks(T, pos, sw) if window_only else None
     out = la.latent_attention_split_reference(
-        *(torch.from_numpy(v) for v in (q, tk, tv, a_k, cos, sin)), pos, chunk=chunk,
-        chunks=chunks, **kw)
+        *(torch.from_numpy(v) for v in (q, tk, tv, a_k, cos, sin)), pos, chunk=chunk, **kw)
     assert out.shape == (B, H, Rv) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
@@ -89,19 +88,6 @@ def test_split_reference_matches_pallas_core_bf16():
         *(torch.from_numpy(v).bfloat16() for v in (q, tk, tv, a_k)), torch.from_numpy(cos),
         torch.from_numpy(sin), pos, chunk=32, **kw)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-2, rtol=2e-2)
-
-
-@pytest.mark.parametrize("T,pos,sliding", [
-    (1, 0, 0), (128, 127, 0), (129, 128, 0), (544, 543, 0), (544, 300, 0),
-    (640, 639, 0), (2048, 2047, 0), (2048, 1000, 300), (544, 500, 128), (544, 543, 1),
-])
-def test_split_chunks_cover_exactly_the_live_keys(T, pos, sliding):
-    first, count = la.split_chunks(T, pos, sliding)
-    live = [t for t in range(T) if t <= pos and (sliding <= 0 or t > pos - sliding)]
-    keys = range(first * la.SPLIT_KEYS, (first + count) * la.SPLIT_KEYS)
-    assert set(live) <= set(keys)
-    for j in range(first, first + count):  # every launched chunk holds a live key
-        assert any(j * la.SPLIT_KEYS <= t < (j + 1) * la.SPLIT_KEYS for t in live)
 
 
 # (name, N, K, R) of chip_smoke.py's KERNEL1_SHAPES: Llama-2-7B at ratio 0.9
