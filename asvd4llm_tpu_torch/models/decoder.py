@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from asvd4llm_tpu_torch.models.registry import (
     is_lowrank, is_q4_lowrank, is_q8_lowrank, linear_name,
@@ -337,12 +338,21 @@ def final_hidden(params, spec, x, *, stats=None, collect=None,
 
 def forward_hidden(params, input_ids, spec, *, positions=None, pad_mask=None,
                    stats=None, collect=None, use_pallas=False, caches=None,
-                   cache_pos=0):
+                   cache_pos=0, remat=False):
     """Embeddings + all decoder layers + final norm -> hidden [B, S, hidden]
     (= reference's ``lm.model.model(batch)``, evaluate_utils.py:163).
 
     caches: optional list of per-layer (k_cache, v_cache), written in place;
-    returns (hidden, caches)."""
+    returns (hidden, caches).
+
+    remat: run each layer under non-reentrant activation checkpointing, so
+    a backward recomputes a layer's activations instead of keeping them (the
+    JAX flag's ``jax.checkpoint``). The non-reentrant form passes gradients
+    to the weights a layer closes over even when its input hidden state
+    needs none. Not with ``caches`` (written in place) or ``stats`` (a
+    recompute would count them twice)."""
+    if remat and (caches is not None or stats is not None):
+        raise ValueError("remat runs without caches and without statistics")
     B, S = input_ids.shape
     dev = input_ids.device
     x = embed(params, spec, input_ids, stats=stats, collect=collect,
@@ -364,6 +374,12 @@ def forward_hidden(params, input_ids, spec, *, positions=None, pad_mask=None,
         mask = causal_mask(spec, i, positions, k_pos, pad_mask)
         la = layer_applier(spec, layer, i, stats=stats, collect=collect,
                            use_pallas=use_pallas)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda h, la=la, layer=layer, mask=mask: decoder_layer(
+                    spec, layer, h, cos, sin, mask, la=la)[0],
+                x, use_reentrant=False)
+            continue
         x, entry = decoder_layer(spec, layer, x, cos, sin, mask, la=la,
                                  cache=None if caches is None else caches[i],
                                  cache_pos=cache_pos)

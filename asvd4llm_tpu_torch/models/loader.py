@@ -129,8 +129,12 @@ def params_from_state_dict(sd: dict, spec: DecoderSpec, *, dtype=torch.bfloat16,
     params["layers"] = layers
     params["final_norm"] = norm(layout["final_norm"]) \
         if f"{layout['final_norm']}.weight" in sd else None
-    params["lm_head"] = linear("lm_head") \
-        if not spec.tie_word_embeddings and "lm_head.weight" in sd else None
+    # a factored head loads whatever the tie says: compressing a tied head
+    # makes it a leaf of its own (registry.set_linear). The JAX package's
+    # loader reads only "lm_head.weight", so it drops a factored head.
+    factored_head = "lm_head.ALinear.weight" in sd or "lm_head.A_qweight" in sd
+    params["lm_head"] = linear("lm_head") if factored_head or (
+        not spec.tie_word_embeddings and "lm_head.weight" in sd) else None
     return params
 
 

@@ -1,7 +1,8 @@
 """End-to-end compression pipeline (ref asvd.py:14-78).
 
-Counterpart of asvd4llm_tpu/pipeline.py: load -> calib data -> abs stats ->
-sensitivity -> binary search -> [quantize] -> evaluate -> append results.
+Counterpart of asvd4llm_tpu/pipeline.py: load -> calib data -> Fisher
+and/or abs stats -> sensitivity -> binary search -> [quantize] -> evaluate
+-> append results.
 Options that the port does not cover yet raise NotImplementedError naming
 their ROADMAP queue.
 """
@@ -17,6 +18,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from asvd4llm_tpu_torch.calib.fisher import calib_fisher_info
 from asvd4llm_tpu_torch.calib.search import binary_search_truncation_rank
 from asvd4llm_tpu_torch.calib.sensitivity import (
     calib_sensitivity_ppl, calib_sensitivity_stable_rank,
@@ -52,8 +54,6 @@ def phase(times: dict, name: str, device=None):
 def check_supported(cfg: ASVDConfig) -> None:
     """Raise for configuration values the port does not run yet."""
     unsupported = [
-        ("fisher" in cfg.scaling_method,
-         f"scaling_method={cfg.scaling_method!r} (Fisher scaling)", "item 3"),
         (cfg.calib_dataset == "selfgen", "calib_dataset='selfgen'", "item 6"),
         (int(np.prod(cfg.mesh_shape)) > 1, f"mesh_shape={cfg.mesh_shape}", "item 7"),
         (bool(cfg.scan_resume_path) or cfg.max_host_rss_gb > 0,
@@ -83,7 +83,14 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
             vocab_size=vocab_size or spec.vocab_size,
             fixed_alpaca_template=cfg.fixed_alpaca_template)
 
+    fisher = None
     stats = None
+    if "fisher" in cfg.scaling_method:
+        with phase(times, "calib_fisher", dev):
+            fisher = calib_fisher_info(params, spec, calib_loader, cache=cache,
+                                       cache_key=cfg.calib_key(),
+                                       include_extras=cfg.compress_all_linears,
+                                       double_shift=cfg.fisher_double_shift)
     if "abs" in cfg.scaling_method:
         with phase(times, "calib_stats", dev):
             stats = calib_input_distribution(params, spec, calib_loader,
@@ -93,7 +100,8 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
     with phase(times, "sensitivity", dev):
         if cfg.sensitivity_metric == "ppl":
             sensitivity = calib_sensitivity_ppl(params, spec, calib_loader, cfg,
-                                                stats=stats, cache=cache)
+                                                stats=stats, fisher=fisher,
+                                                cache=cache)
         else:
             sensitivity = calib_sensitivity_stable_rank(params, spec,
                                                         calib_loader, cfg,
@@ -101,7 +109,8 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
 
     with phase(times, "binary_search", dev):
         compressed, manifest = binary_search_truncation_rank(
-            params, spec, sensitivity, calib_loader, cfg, stats=stats)
+            params, spec, sensitivity, calib_loader, cfg, stats=stats,
+            fisher=fisher)
 
     if cfg.weight_quant != "none":
         from asvd4llm_tpu_torch.ops.quant_apply import quantize_model_weights
@@ -120,7 +129,7 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
             compressed = quantize_lowrank_factors_int4(
                 compressed, spec, group=cfg.int4_group_size, stats=stats)
 
-    artifacts = {"stats": stats, "sensitivity": sensitivity,
+    artifacts = {"stats": stats, "fisher": fisher, "sensitivity": sensitivity,
                  "calib_loader": calib_loader}
     return compressed, manifest, artifacts
 

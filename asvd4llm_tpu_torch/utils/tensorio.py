@@ -101,20 +101,41 @@ def load_safetensors_state_dict(model_dir: str, *, to_f32: bool = True) -> dict:
     return sd
 
 
-def save_safetensors(path: str, tensors: dict, *, bf16: frozenset = frozenset()):
-    """Write {name: np.ndarray} as one .safetensors file. Names in ``bf16``
-    must hold uint16 bf16 bit patterns (see f32_to_bf16_bits)."""
+def write_safetensors(path: str, entries, *, metadata: dict | None = None):
+    """Write one .safetensors file from ``entries``, a list of
+    (name, dtype tag, shape, producer): the header is written first from
+    the tags and shapes, then each ``producer()`` is called in turn and its
+    array written, so a caller can hand over one tensor at a time (a model
+    larger than host memory streams through). ``metadata`` becomes the
+    header's ``__metadata__`` block (string keys and values)."""
     header = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     offset = 0
-    for name, arr in tensors.items():
-        tag = "BF16" if name in bf16 else _NP_TAGS[arr.dtype]
-        header[name] = {"dtype": tag, "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + arr.nbytes]}
-        offset += arr.nbytes
+    for name, tag, shape, _ in entries:
+        nbytes = int(np.prod(shape, dtype=np.int64)) * _ST_DTYPES[tag][1]
+        header[name] = {"dtype": tag, "shape": [int(d) for d in shape],
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     blob = json.dumps(header).encode()
     blob += b" " * (-len(blob) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for arr in tensors.values():
-            f.write(np.ascontiguousarray(arr).tobytes())
+        for name, _, _, produce in entries:
+            arr = np.ascontiguousarray(produce())
+            b0, b1 = header[name]["data_offsets"]
+            if arr.nbytes != b1 - b0:
+                raise ValueError(f"{path}: {name!r} produced {arr.nbytes} bytes, "
+                                 f"not the {header[name]['shape']} it announced")
+            f.write(arr.reshape(-1).view(np.uint8).data)
+
+
+def save_safetensors(path: str, tensors: dict, *, bf16: frozenset = frozenset(),
+                     metadata: dict | None = None):
+    """Write {name: np.ndarray} as one .safetensors file. Names in ``bf16``
+    must hold uint16 bf16 bit patterns (see f32_to_bf16_bits)."""
+    write_safetensors(path, [
+        (name, "BF16" if name in bf16 else _NP_TAGS[arr.dtype], arr.shape,
+         lambda arr=arr: arr)
+        for name, arr in tensors.items()], metadata=metadata)

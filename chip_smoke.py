@@ -17,14 +17,32 @@ Phases:
            deployed factors, each followed by greedy decode, with the
            KV-cache target and int8 factors at the CLI's default rank_align
            (ranks padded to multiples of 16 at run time), followed by greedy
-           decode, and once with AWQ int4 fake-quant (PPL only). Every
+           decode, once with AWQ int4 fake-quant (PPL only), and once
+           with the weight target scaled by Fisher information and abs-mean
+           statistics (--scaling_method fisher_abs_mean: the calib_fisher
+           phase's seconds, vector count and peak device memory), followed
+           by greedy decode. Every
            decode runs generate_on_device (one captured CUDA graph replayed
            per token, the served path) and generate (eager steps) in turns,
            which must emit the same tokens; the decode step is timed both
            ways on the host clock and traced for device busy and idle
            share, with the graph's capture time. Each run's kernel launches
            are counted from 0 (a replay counts the launches its capture
-           made); the kernel each run exists for must be > 0;
+           made); the kernel each run exists for must be > 0. Then one
+           Fisher calibration batch (1 x 256 tokens) of Llama-2-7B at its
+           full 32 layers, random bf16 weights built on the card, whose
+           peak device memory must stay below 1.25x the weights' bytes;
+  export   the weight-target, KV-target, int8 and int4 models of the main
+           phase through save_compressed (native checkpoint) and
+           export_hf_repo (HF repo, f32), read back onto the card by
+           load_compressed and load_model: every tensor equal to the
+           model's (bit for bit; the repo after the cast back to bf16), and
+           greedy decode of each reloaded model through generate_on_device
+           with the model's tokens and its kernel launched; bytes on disk
+           and seconds to write and read each artifact. Then the builder
+           (export.build_repo.main, --calib_dataset synthetic) once end to
+           end on the smoke checkpoint, with its repo and native checkpoint
+           read back and decoded. Needs the main phase;
   serve    the paged continuous-batching engine (PagedEngine, use_pallas,
            bf16 pools, automatic page size) on the weight-target and
            KV-target models of the main phase: dense pools (kernel 5),
@@ -1223,6 +1241,64 @@ def decode_breakdown(torch, run, steps, label="decode"):
     return busy / steps, idle
 
 
+def main_prompt(vocab):
+    """The decode prompt of every main-path and export run."""
+    return np.random.RandomState(1).randint(0, vocab, (DECODE_BATCH, PROMPT_LEN))
+
+
+class FisherProbe:
+    """Around one CLI run: wraps the pipeline's calib_fisher_info to keep
+    the Fisher vectors it returns and the device's peak memory over the
+    call (`vectors` stays None in a run that computes none)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.vectors = self.peak = self.base = None
+
+    def __enter__(self):
+        from asvd4llm_tpu_torch import pipeline
+        torch, self.orig = self.torch, pipeline.calib_fisher_info
+
+        def probe(params, *args, **kw):
+            dev = params["embed_tokens"].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                self.base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            self.vectors = self.orig(params, *args, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                self.peak = torch.cuda.max_memory_allocated(dev)
+            return self.vectors
+        pipeline.calib_fisher_info = probe
+        return self
+
+    def __exit__(self, *exc):
+        from asvd4llm_tpu_torch import pipeline
+        pipeline.calib_fisher_info = self.orig
+
+    def check(self, out):
+        """One vector per linear (lm_head included), each finite and
+        positive somewhere; logs the phase's seconds and peak memory."""
+        from asvd4llm_tpu_torch.models.registry import iter_linears
+        names = [n for n, _ in iter_linears(out["params"], out["spec"], include_extras=True)]
+        vecs = self.vectors
+        mem = "not measured" if self.peak is None else (
+            f"{self.peak / 1e9:.3f} GB ({self.base / 1e9:.3f} GB held before the phase)")
+        log(f"  calib_fisher: {out['phase_times']['calib_fisher']:.3f} s, {len(vecs)} Fisher "
+            f"vectors for {len(names)} linears (lm_head included), peak device memory over "
+            f"the phase {mem}; largest entries "
+            + ", ".join(f"{n.rsplit('.', 1)[-1]} {float(vecs[n].max()):.3e}"
+                        for n in names[:7] + ["lm_head"]))
+        if sorted(vecs) != sorted(names):
+            raise AssertionError(f"Fisher vectors for {sorted(set(names) ^ set(vecs))[:4]} "
+                                 f"missing or extra")
+        bad = [n for n, v in vecs.items()
+               if not bool(self.torch.isfinite(v).all()) or not bool((v > 0).any())]
+        if bad:
+            raise AssertionError(f"Fisher vectors not finite or all 0: {bad[:4]}")
+
+
 WEIGHT_TARGET = ["--param_ratio_target", "0.9", "--rank_align", "128"]
 KV_TARGET = ["--compress_kv_cache", "--kv_cache_ratio_target", "0.5"]  # rank_align 1
 # (run, what it adds to the CLI, cache mode of its decode or None for a
@@ -1238,6 +1314,8 @@ MAIN_RUNS = [
     ("int4 factors", WEIGHT_TARGET + ["--deploy_int4_factors", "--int4_group_size",
                                       str(Q4_GROUP)], False, "fused_lowrank_q4"),
     ("AWQ int4 fake-quant", WEIGHT_TARGET + ["--weight_quant", "awq_int4"], None, None),
+    ("Fisher scaling", WEIGHT_TARGET + ["--scaling_method", "fisher_abs_mean"], False,
+     "fused_lowrank"),
 ]
 
 
@@ -1247,11 +1325,11 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
     followed by greedy decode with use_pallas=True and a decode-step check.
     The kernel counts are set to 0 just before each run and read just after
     its decode; `launches` accumulates them per kernel. `models`, when
-    given, keeps (params, spec) of the SERVE_MODELS runs for the serve
-    phase. Returns {run: counts}."""
+    given, keeps (params, spec, greedy tokens, manifest) of the SERVE_MODELS
+    and EXPORT_RUNS runs for the serve and export phases. Returns
+    {run: counts}."""
     ckpt = write_checkpoint(work, config, layers)
-    prompt = np.random.RandomState(1).randint(
-        0, config["vocab_size"], (DECODE_BATCH, PROMPT_LEN))
+    prompt = main_prompt(config["vocab_size"])
     counts_by_run = {}
     steps = {}
     for run, flags, latent_kv, _ in MAIN_RUNS:
@@ -1259,9 +1337,13 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
             f"then generate with {'the latent' if latent_kv else 'dense'} caches"
         log(f"main path, {run}: cli {' '.join(flags)}, {decode}")
         reset_kernel_counts()
-        out = run_cli(torch, ckpt, work, flags, sizes, device)
+        with FisherProbe(torch) as fisher:
+            out = run_cli(torch, ckpt, work, flags, sizes, device)
+        if fisher.vectors is not None:
+            fisher.check(out)
+        toks = None
         if latent_kv is not None:
-            greedy(torch, out, prompt, latent_kv=latent_kv)
+            toks = greedy(torch, out, prompt, latent_kv=latent_kv)
         counts, forms = kernel_counts(), form_counts()
         log(f"  kernel launches in this run: {counts}; by form: {forms}")
         check_forms(run, MAIN_FORMS.get(run, {}), forms)
@@ -1272,8 +1354,8 @@ def phase_main_path(torch, work, config, layers, sizes, device, launches, models
         counts_by_run[run] = counts
         if latent_kv is not None:
             steps[run] = step_check(torch, out, prompt, latent_kv=latent_kv)
-        if models is not None and run in SERVE_MODELS:
-            models[run] = (out["params"], out["spec"])
+        if models is not None and run in SERVE_MODELS + EXPORT_RUNS:
+            models[run] = (out["params"], out["spec"], toks, out["manifest"])
         del out
     log("decode steps, graph vs eager (step ms on the host clock / device busy ms per step"
         " / idle share on the host clock, 1 - busy / step / idle share in the traced "
@@ -1296,7 +1378,8 @@ MAIN_FORMS = {"weight target": {"fused_lowrank": "wgmma_tiled"},
                                   "latent_attention": "split_wgmma"},
               "int8 factors": {"fused_lowrank_q8": "wgmma_tiled"},
               "int8 factors, default rank_align": {"fused_lowrank_q8": "wgmma_tiled"},
-              "int4 factors": {"fused_lowrank_q4": "wgmma_tiled"}}
+              "int4 factors": {"fused_lowrank_q4": "wgmma_tiled"},
+              "Fisher scaling": {"fused_lowrank": "wgmma_tiled"}}
 OLD_FORMS = ("wmma_tiled", "tile32", "cuda_cores")
 # runs whose int8 leaves come out of the search at ranks that are not
 # multiples of 16, so that only align_ranks in evaluate and generate (and
@@ -1326,6 +1409,186 @@ def check_forms(run, want, forms):
         old = [f for f in got if f in OLD_FORMS]
         if old:
             raise AssertionError(f"{run}: {kernel} ran the earlier forms {old} ({got})")
+
+
+def fisher_full_depth(torch, config, device, seqlen=256):
+    """One Fisher calibration batch (1 x `seqlen` tokens) of the model at
+    its published depth, random bf16 weights built on the device from seed
+    0 (no file written). The peak-memory counter is reset after the weights
+    are built; the batch's peak above what the device held before must stay
+    below 1.25x the weights' bytes (keeping every linear's gradient would
+    need about 2x). A second batch is timed warm."""
+    from asvd4llm_tpu_torch.calib.fisher import calib_fisher_info
+    from asvd4llm_tpu_torch.export.checkpoint import flatten
+    from asvd4llm_tpu_torch.models.init import init_params
+    from asvd4llm_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = spec_from_hf_config(config)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    _sync(torch, dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in flatten(params))
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    loader = [{"input_ids": np.random.RandomState(2).randint(0, spec.vocab_size, (1, seqlen))}]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fisher = calib_fisher_info(params, spec, loader)
+        _sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - base if cuda else None
+    # forward, the layers' forward again under remat, backward (2x forward)
+    flop = 8 * n_params * (seqlen - 1)
+    log(f"full-depth Fisher batch: {spec.num_layers} layers, {n_params / 1e9:.3f} G params, "
+        f"weights {weight_bytes / 1e9:.3f} GB built on the device in {build_s:.1f} s; "
+        f"1 x {seqlen} tokens: {secs[0]:.3f} s first batch, {secs[1]:.3f} s warm "
+        f"({flop / 1e12:.1f} TFLOP at 8 N T: {flop / secs[1] / 1e12:.1f} TFLOP/s warm); "
+        f"peak device memory above the {base / 1e9:.3f} GB held before "
+        + ("not measured" if peak is None else
+           f"{peak / 1e9:.3f} GB = {peak / weight_bytes:.3f}x the weights (limit 1.25x)"))
+    want = spec.num_layers * 7 + 1
+    bad = [n for n, v in fisher.items()
+           if not bool(torch.isfinite(v).all()) or not bool((v > 0).any())]
+    if len(fisher) != want or bad:
+        raise AssertionError(f"full-depth Fisher: {len(fisher)} vectors of {want}; "
+                             f"not finite or all 0: {bad[:4]}")
+    if peak is not None and peak >= 1.25 * weight_bytes:
+        raise AssertionError(f"full-depth Fisher peaked at {peak / weight_bytes:.3f}x the "
+                             f"weights' bytes: the gradients are not freed as they come")
+    del params, fisher
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- export
+
+# the main-path models the export phase writes and reads back
+EXPORT_RUNS = ("weight target", "KV-cache target", "int8 factors", "int4 factors")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def same_tensors(torch, got, want, label, cast=False):
+    """Every tensor of `got` is on `want`'s device and equal to `want`'s, bit
+    for bit (with `cast`, after the cast to `want`'s dtype); returns the
+    count."""
+    from asvd4llm_tpu_torch.export.checkpoint import flatten
+    a, b = dict(flatten(got)), dict(flatten(want))
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: tensors {sorted(a.keys() ^ b.keys())[:4]} missing "
+                             f"or extra")
+    for k, t in b.items():
+        g = a[k].to(t.dtype) if cast else a[k]
+        if g.device != t.device or g.dtype != t.dtype or not torch.equal(g, t):
+            raise AssertionError(f"{label}: {k} differs from the model's ({a[k].dtype} on "
+                                 f"{a[k].device} against {t.dtype} on {t.device})")
+    return len(b)
+
+
+def _timed(torch, dev, fn):
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def decode_reloaded(torch, params, spec, prompt, latent_kv, want, kernel, launches, label):
+    """Greedy decode of a reloaded model through generate_on_device with the
+    kernel counts set to 0 just before and read just after: its tokens must
+    be `want` (when given) and `kernel` must have launched."""
+    from asvd4llm_tpu_torch.eval.generate import generate_on_device
+    reset_kernel_counts()
+    toks = generate_on_device(params, spec, prompt, max_new_tokens=NEW_TOKENS,
+                              latent_kv=latent_kv, use_pallas=True)
+    counts = kernel_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    _check_tokens(toks, prompt, spec.vocab_size)
+    if want is not None and not np.array_equal(toks, want):
+        raise AssertionError(f"{label}: the reloaded model decodes other tokens than the "
+                             f"model (first row {toks[0, -8:]} against {want[0, -8:]})")
+    if counts[kernel] <= 0:
+        raise AssertionError(f"{label}: the reloaded model's decode never launched {kernel}")
+    log(f"  {label}: generate_on_device (batch {prompt.shape[0]}, {NEW_TOKENS} new) "
+        + ("the model's tokens" if want is not None else "valid tokens")
+        + f"; {kernel} launched {counts[kernel]} times")
+
+
+def phase_export(torch, work, sizes, device, models, launches):
+    """EXPORT_RUNS' models through both artifacts and back onto the device,
+    then the builder once end to end (see the module docstring)."""
+    from asvd4llm_tpu_torch.export import build_repo
+    from asvd4llm_tpu_torch.export.checkpoint import load_compressed, save_compressed
+    from asvd4llm_tpu_torch.export.hf_repo import export_hf_repo
+    from asvd4llm_tpu_torch.models.loader import load_model
+
+    ckpt = os.path.join(work, "ckpt")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        hf_config = json.load(f)
+    prompt = main_prompt(hf_config["vocab_size"])
+    kernel_of = {run: k for run, _, _, k in MAIN_RUNS}
+    latent_of = {run: lat for run, _, lat, _ in MAIN_RUNS}
+    dev = torch.device(device)
+    for run in EXPORT_RUNS:
+        params, spec, toks, ranks = models[run]
+        native, repo = os.path.join(work, "export_native"), os.path.join(work, "export_repo")
+        log(f"export, {run}: {len(ranks)} factored leaves")
+        _, w_native = _timed(torch, dev, lambda: save_compressed(native, params, spec, ranks))
+        _, w_repo = _timed(torch, dev, lambda: export_hf_repo(repo, params, spec, ranks,
+                                                              hf_config=hf_config))
+        (p_native, spec_n, ranks_n), r_native = _timed(
+            torch, dev, lambda: load_compressed(native, device=device))
+        (p_repo, spec_r, _), r_repo = _timed(
+            torch, dev, lambda: load_model(repo, dtype="bfloat16", device=device))
+        if spec_n != spec or ranks_n != ranks or spec_r.num_layers != spec.num_layers:
+            raise AssertionError(f"export, {run}: spec or ranks changed in the round trip")
+        n = same_tensors(torch, p_native, params, f"{run}, native checkpoint")
+        same_tensors(torch, p_repo, params, f"{run}, HF repo", cast=True)
+        log(f"  native checkpoint: {_dir_bytes(native) / 1e9:.3f} GB on disk, write "
+            f"{w_native:.2f} s, read onto {device} {r_native:.2f} s; HF repo (f32): "
+            f"{_dir_bytes(repo) / 1e9:.3f} GB, write {w_repo:.2f} s, read {r_repo:.2f} s; "
+            f"{n} tensors equal to the model's (the repo's after the cast to bf16)")
+        for label, p in (("native checkpoint", p_native), ("HF repo", p_repo)):
+            decode_reloaded(torch, p, spec, prompt, latent_of[run], toks, kernel_of[run],
+                            launches, f"{run}, {label}")
+        del p_native, p_repo
+        shutil.rmtree(native)
+        shutil.rmtree(repo)
+
+    repo, native = os.path.join(work, "built_repo"), os.path.join(work, "built_native")
+    argv = ["--model_id", ckpt, *WEIGHT_TARGET, "--act_aware", "--calib_dataset", "synthetic",
+            "--n_calib_samples", str(sizes["n_calib_samples"]), "--seqlen",
+            str(sizes["seqlen"]), "--eval_dtype", "bfloat16",
+            "--cache_dir", os.path.join(work, "cache"), "--repo_dir", repo,
+            "--native_dir", native]
+    log(f"export, builder: python -m asvd4llm_tpu_torch.export.build_repo "
+        f"{' '.join(argv[2:])}")
+    _, secs = _timed(torch, dev, lambda: build_repo.main(argv, device=device))
+    (p_native, spec, ranks), _ = _timed(torch, dev, lambda: load_compressed(native,
+                                                                           device=device))
+    (p_repo, _, _), _ = _timed(torch, dev, lambda: load_model(repo, dtype="bfloat16",
+                                                             device=device))
+    n = same_tensors(torch, p_repo, p_native, "builder, HF repo against its native checkpoint",
+                     cast=True)
+    log(f"  builder: {secs:.1f} s; {len(ranks)} factored leaves; repo "
+        f"{_dir_bytes(repo) / 1e9:.3f} GB, native {_dir_bytes(native) / 1e9:.3f} GB; "
+        f"{n} tensors of the reloaded repo equal the reloaded native checkpoint's")
+    if not ranks:
+        raise AssertionError("the builder factorized no leaf")
+    decode_reloaded(torch, p_repo, spec, prompt, False, None, "fused_lowrank", launches,
+                    "builder, HF repo")
 
 
 # ------------------------------------------------------------------ serve
@@ -1530,7 +1793,7 @@ def phase_serve(torch, models, launches):
     from asvd4llm_tpu_torch.eval.generate import generate
     counts_by_run = {}
     for run, model, latent, use_pallas, opts, chunk, kernel in SERVE_RUNS:
-        params, spec = models[model]
+        params, spec = models[model][:2]
         prompts, budgets = serve_traffic(spec.vocab_size)
         log(f"serve, {run}: {model} model, PagedEngine(latent={latent!r}, "
             f"use_pallas={use_pallas}, bf16 pools, automatic page, {SERVE_ENGINE}, "
@@ -1595,7 +1858,7 @@ def phase_serve(torch, models, launches):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main,serve")
+    ap.add_argument("--phases", default="kernels,main,export,serve")
     ap.add_argument("--workdir", default="",
                     help="checkpoint/cache directory (default: a temporary one)")
     args = ap.parse_args(argv)
@@ -1637,18 +1900,21 @@ def main(argv=None) -> int:
         if "main" in phases:
             log(f"main path sizes: {MAIN_SIZES}, decode batch {DECODE_BATCH}, "
                 f"prompt {PROMPT_LEN}, {NEW_TOKENS} new tokens")
-            models = {} if "serve" in phases else None
+            models = {} if "serve" in phases or "export" in phases else None
             counts = phase_main_path(torch, work, LLAMA2_7B, SMOKE_LAYERS,
                                      MAIN_SIZES, "cuda:0", launches, models)
             for run, _, _, kernel in MAIN_RUNS:
                 if kernel and counts[run][kernel] <= 0:
                     raise AssertionError(f"the {run} main path never launched the "
                                          f"{kernel} kernel")
-            if models is not None:
+            fisher_full_depth(torch, LLAMA2_7B, "cuda:0")
+            if "export" in phases:
+                phase_export(torch, work, MAIN_SIZES, "cuda:0", models, launches)
+            if "serve" in phases:
                 phase_serve(torch, models, launches)
-                del models
-        elif "serve" in phases:
-            raise ValueError("the serve phase needs the main phase's models")
+            del models
+        elif "serve" in phases or "export" in phases:
+            raise ValueError("the serve and export phases need the main phase's models")
     finally:
         if not args.workdir:
             shutil.rmtree(work, ignore_errors=True)

@@ -928,3 +928,77 @@ def test_split_k_forms_give_the_same_bits_every_run(cuda, kind):
     first = call()
     for _ in range(5):
         assert torch.equal(call(), first)
+
+
+# ------------------------------------------- Fisher calibration and export
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fisher_on_card_matches_cpu(cuda, dtype):
+    """calib_fisher_info on the card against the same call on the CPU in
+    f32: f32 within rtol 1e-3 (another summation order); bf16 weights
+    within 5% of each vector's largest entry (the gradients themselves are
+    bf16, 8 bits of mantissa, through two layers' backward). The card's
+    weights come back without gradients."""
+    from asvd4llm_tpu_torch.calib.fisher import calib_fisher_info
+    from asvd4llm_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+    from asvd4llm_tpu_torch.models.init import init_params
+    from asvd4llm_tpu_torch.models.spec import llama_spec
+
+    spec = llama_spec(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
+                      max_position_embeddings=64)
+    host = init_params(spec, torch.Generator().manual_seed(0), dtype=torch.float32)
+    card = params_from_numpy(params_to_numpy(host), device=cuda,
+                             dtype=getattr(torch, dtype))
+    rng = np.random.RandomState(3)
+    loader = [{"input_ids": rng.randint(0, 128, (2, 33))} for _ in range(3)]
+    ref = calib_fisher_info(host, spec, loader)
+    got = calib_fisher_info(card, spec, loader)
+    assert set(got) == set(ref)
+    for k in ref:
+        g = got[k].cpu()
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), k
+        if dtype == "float32":
+            torch.testing.assert_close(g, ref[k], rtol=1e-3, atol=1e-7)
+        else:
+            assert float((g - ref[k]).abs().max()) <= 0.05 * float(ref[k].abs().max()), k
+    assert all(leaf["w"].grad is None and not leaf["w"].requires_grad
+               for layer in card["layers"] for leaf in layer.values()
+               if isinstance(leaf, dict) and "w" in leaf and leaf["w"].dim() == 2)
+
+
+@pytest.mark.gpu
+def test_export_round_trip_on_card(cuda, tmp_path):
+    """A bf16 low-rank model on the card through the native checkpoint and
+    the HF repo: both reload onto the card equal to the model (bit for bit;
+    the f32 repo exactly after the cast back to bf16) and decode its greedy
+    tokens through the kernels."""
+    import dataclasses
+
+    from asvd4llm_tpu_torch.eval.generate import generate_on_device
+    from asvd4llm_tpu_torch.export.checkpoint import load_compressed, save_compressed
+    from asvd4llm_tpu_torch.export.hf_repo import export_hf_repo
+    from asvd4llm_tpu_torch.models.loader import load_model
+
+    params, spec = _tiny_lowrank_llama(cuda, dtype=torch.bfloat16)
+    ranks = {"model.layers.0.self_attn.q_proj": int(params["layers"][0]["q_proj"]["A"].shape[1])}
+    save_compressed(str(tmp_path / "native"), params, spec, ranks)
+    export_hf_repo(str(tmp_path / "repo"), params, spec, ranks)
+    native, spec2, ranks2 = load_compressed(str(tmp_path / "native"))
+    repo, spec3, _ = load_model(str(tmp_path / "repo"), dtype="bfloat16")
+    assert spec2 == spec and ranks2 == ranks
+    # config.json carries no sliding pattern; without a window it is moot
+    assert spec.sliding_window == 0
+    assert dataclasses.replace(spec3, sliding_pattern=spec.sliding_pattern) == spec
+    ids = torch.randint(0, 128, (2, 9), generator=torch.Generator().manual_seed(1))
+    want = generate_on_device(params, spec, ids.numpy(), max_new_tokens=6, use_pallas=True)
+    for p in (native, repo):
+        for layer, ref in zip(p["layers"], params["layers"]):
+            for key, leaf in ref.items():
+                for k, t in leaf.items():
+                    if t is not None:
+                        assert layer[key][k].device == t.device
+                        assert layer[key][k].dtype == t.dtype and torch.equal(layer[key][k], t)
+        got = generate_on_device(p, spec, ids.numpy(), max_new_tokens=6, use_pallas=True)
+        np.testing.assert_array_equal(got, want)

@@ -167,7 +167,9 @@ def test_cli_flags_match_jax(monkeypatch):
     assert tconfig.config_from_args(argv).use_pallas is True
     assert tconfig.config_from_args(argv + ["--no-use_pallas"]).use_pallas is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.check_supported(t.replace(scaling_method="fisher"))
+        tpipe.check_supported(t.replace(calib_dataset="selfgen"))
+    for method in ("fisher", "fisher_abs_mean"):
+        tpipe.check_supported(t.replace(scaling_method=method))
     for quant in ({"weight_quant": "awq_int4"}, {"deploy_int8_factors": True},
                   {"deploy_int4_factors": True}):
         tpipe.check_supported(t.replace(**quant))

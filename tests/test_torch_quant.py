@@ -365,7 +365,9 @@ def test_loader_reads_quantized_state_dicts(tmp_path, tiny, jax_deployed):
     """A checkpoint holding q8 and q4 leaves (the JAX package's HF buffer
     names), written with the port's safetensors writer: the port's loader
     and the JAX package's native loader read the same pytree, codes in
-    their integer types and scales in f32 even for a bf16 load."""
+    their integer types and scales in f32 even for a bf16 load. The one
+    difference is the factored head: the JAX loader reads a head only from
+    ``lm_head.weight`` and drops it (ROADMAP §3); the port loads it."""
     jparams, _, spec, _ = tiny
     q8, q4 = jax_deployed["int8"], jax_deployed["int4"]
     sd = {"model.embed_tokens.weight": jparams["embed_tokens"],
@@ -397,8 +399,17 @@ def test_loader_reads_quantized_state_dicts(tmp_path, tiny, jax_deployed):
                        vocab_size=128, max_position_embeddings=64), f)
     jp, _ = load_model_native(str(ckpt), dtype=jnp.float32)
     tp, _, _ = load_model(str(ckpt), dtype="float32", device="cpu")
+    assert jp["lm_head"] is None and "lm_head.A_qweight" in sd
+    head = params_to_numpy(tp["lm_head"])
+    want = jreg.get_linear(q8 if "lm_head.A_scale" in sd else q4, spec, "lm_head")
+    assert head.keys() == want.keys()
+    for k, v in want.items():
+        if v is None:
+            assert head[k] is None, k
+        else:
+            np.testing.assert_array_equal(head[k], np.asarray(v), err_msg=k)
     jl = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jp))[0]
-    tl = jax.tree_util.tree_flatten_with_path(params_to_numpy(tp))[0]
+    tl = jax.tree_util.tree_flatten_with_path(params_to_numpy(dict(tp, lm_head=None)))[0]
     assert [p for p, _ in jl] == [p for p, _ in tl]
     for (path, j), (_, t) in zip(jl, tl):
         assert j.dtype == t.dtype, path
