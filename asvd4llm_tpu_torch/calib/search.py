@@ -12,7 +12,10 @@ Counterpart of asvd4llm_tpu/calib/search.py, step by step:
   (ref :88-102), or in ppl-target mode the calibration PPL of every layer
   decomposed (ref :64-87);
 - the final pass decomposes every layer whose ratio != default into
-  two-factor low-rank leaves (ref :104-131).
+  two-factor low-rank leaves (ref :104-131), each leaf's max-rank SVD
+  dropped after its last use; with ``resume_dir`` each leaf's factors are
+  checkpointed as ``<resume_dir>/<name>.npz`` in the JAX package's layout
+  (JAX :274-318), so a rerun reloads finished leaves.
 
 Returns (new_params, manifest {layer_name: rank}).
 """
@@ -20,11 +23,14 @@ Returns (new_params, manifest {layer_name: rank}).
 from __future__ import annotations
 
 import logging
+import os
 import time
+import zipfile
 
 import numpy as np
 import torch
 
+from asvd4llm_tpu_torch.calib.sensitivity import split_generator
 from asvd4llm_tpu_torch.eval.ppl import evaluate_perplexity
 from asvd4llm_tpu_torch.models.registry import (
     dense_leaf, get_linear, leaf_shape, lowrank_leaf, reference_walk_order,
@@ -51,11 +57,61 @@ def naive_compressed_params(numels: dict, ratios: dict) -> tuple:
     return comp, tot
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A factor as numpy; bf16, which numpy lacks, goes up to f32
+    (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A checkpointed factor on ``like``'s device and dtype. The JAX
+    package writes bf16 factors as 2-byte void records (ml_dtypes'
+    bfloat16); their bits are read as bf16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def load_factors(path, like):
+    """(leaf, rank) from a factor checkpoint, or None when it is missing or
+    torn (then the leaf is recomputed)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            bias = _from_numpy(z["bias"], like) if "bias" in z.files else None
+            leaf = lowrank_leaf(_from_numpy(z["a"], like), _from_numpy(z["b"], like),
+                                bias)
+            return leaf, int(z["rank"])
+    except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile) as e:
+        # a torn file from a kill: recompute
+        log.warning("decompose resume: unreadable %s (%s), recomputing", path, e)
+        return None
+
+
+def save_factors(path, f: LowRankFactors):
+    """Write one leaf's factors atomically: a ``.tmp.npz`` replaced onto
+    ``path``, so a kill never leaves a torn checkpoint."""
+    arrs = {"a": _to_numpy(f.A), "b": _to_numpy(f.B), "rank": np.int64(f.rank)}
+    if f.bias is not None:
+        arrs["bias"] = _to_numpy(f.bias)
+    tmp = path + ".tmp.npz"   # np.savez appends .npz to a bare name
+    np.savez(tmp, **arrs)
+    os.replace(tmp, path)
+
+
 def binary_search_truncation_rank(params, spec, sensitivity_dict,
                                   calib_loader, cfg, *, stats=None,
                                   fisher=None,
-                                  generator: torch.Generator | None = None):
-    """Returns (compressed_params, manifest {name: rank})."""
+                                  generator: torch.Generator | None = None,
+                                  resume_dir=None):
+    """Returns (compressed_params, manifest {name: rank}). ``resume_dir``:
+    per-leaf factor checkpoints of the final pass (see the module
+    docstring). Each SVD draws its leaf's own generator, split from
+    ``generator`` whether the leaf is computed or loaded."""
     if cfg.compress_kv_cache:
         ratio_target = cfg.kv_cache_ratio_target
         sensitivity_dict = {k: v for k, v in sensitivity_dict.items()
@@ -112,7 +168,7 @@ def binary_search_truncation_rank(params, spec, sensitivity_dict,
         return min(rank_for_param_ratio(in_f, out_f, r, cfg.rank_align),
                    in_f, out_f)
 
-    def _layer_svd(name):
+    def _layer_svd(name, sub):
         """Per-layer max-rank SVD, computed once and truncated per trial and
         for the final pass (truncating it at r IS the rank-r solution)."""
         ent = svd_cache.get(name)
@@ -129,16 +185,16 @@ def binary_search_truncation_rank(params, spec, sensitivity_dict,
                 None if stats is None else stats.get(name),
                 None if fisher is None else fisher.get(name), cfg.alpha)
         u, s, vh = scaled_svd(leaf["w"], max(max_rank, 1), scale=scale,
-                              backend=cfg.svd_backend, generator=generator)
+                              backend=cfg.svd_backend, generator=sub)
         ent = (u, s, vh, leaf)
         svd_cache[name] = ent
         return ent
 
-    def _trial_dense(name, r):
+    def _trial_dense(name, r, sub):
         rank = _rank(name, r)
         if rank <= 0:
             return None
-        u, s, vh, leaf = _layer_svd(name)
+        u, s, vh, leaf = _layer_svd(name, sub)
         w_hat = ((u[:, :rank] * s[:rank][None, :]) @ vh[:rank, :]
                  ).to(leaf["w"].dtype)
         if not bool(torch.isfinite(w_hat).all()):
@@ -156,7 +212,7 @@ def binary_search_truncation_rank(params, spec, sensitivity_dict,
             # factorizes EVERY layer, ratio-1.0 ones included
             trial = params
             for name, r in ratios.items():
-                new_leaf = _trial_dense(name, r)
+                new_leaf = _trial_dense(name, r, split_generator(generator))
                 if new_leaf is not None:
                     trial = set_linear(trial, spec, name, new_leaf)
             ppl = evaluate_perplexity(trial, spec, input_ids,
@@ -178,13 +234,13 @@ def binary_search_truncation_rank(params, spec, sensitivity_dict,
             else:
                 low = mid + 1
 
-    def _factors(name, r):
+    def _factors(name, r, sub):
         """Final-pass factors: the cached max-rank SVD truncated at r, the
         same factorization the ppl-target trials evaluated."""
         rank = _rank(name, r)
         if rank <= 0:
             return None
-        u, s, vh, leaf = _layer_svd(name)
+        u, s, vh, leaf = _layer_svd(name, sub)
         a, b_f = fuse_sigma(u[:, :rank], s[:rank], vh[:rank, :], cfg.sigma_fuse)
         a = a.to(leaf["w"].dtype).contiguous()
         b_f = b_f.to(leaf["w"].dtype).contiguous()
@@ -199,22 +255,38 @@ def binary_search_truncation_rank(params, spec, sensitivity_dict,
     t0 = time.time()
     manifest: dict = {}
     out = params
+    if resume_dir is not None:
+        os.makedirs(resume_dir, exist_ok=True)
+    n_loaded = 0
     for name, r in ratios.items():
         if r == default_param_ratio:
             continue
-        f = _factors(name, r)
-        svd_cache.pop(name, None)  # its last consumer: bound the peak memory
+        sub = split_generator(generator)
+        ck = None if resume_dir is None else os.path.join(resume_dir, name + ".npz")
+        hit = None if ck is None else \
+            load_factors(ck, get_linear(params, spec, name)["w"])
+        if hit is not None:
+            out = set_linear(out, spec, name, hit[0])
+            manifest[name] = hit[1]
+            n_loaded += 1
+            continue
+        f = _factors(name, r, sub)
+        # its last consumer: one cached factorization at a time, not every
+        # compressed leaf's (about 23 GB at Llama-2-7B's 32 layers)
+        svd_cache.pop(name, None)
         if f is None:
             log.warning("factorization unusable for %s at ratio %s; "
                         "keeping dense layer", name, r)
             continue
         out = set_linear(out, spec, name, lowrank_leaf(f.A, f.B, f.bias))
         manifest[name] = f.rank
+        if ck is not None:
+            save_factors(ck, f)
         o, i = shapes[name]
         if cfg.compress_kv_cache and f.rank >= min(o, i):
             log.warning("%s: rank_align=%d rounded rank to the full "
                         "dimension (%d) — no realized KV compression for "
                         "this layer", name, cfg.rank_align, f.rank)
-    log.info("decompose time: %.2fs (%d layers)", time.time() - t0,
-             len(manifest))
+    log.info("decompose time: %.2fs (%d layers, %d from resume checkpoints)",
+             time.time() - t0, len(manifest), n_loaded)
     return out, manifest

@@ -76,13 +76,16 @@ class ASVDConfig:
     # compute dtype for model forward ("bfloat16" | "float32" | "float16");
     # factorization always runs in float32 (ref svd_linear.py:47).
     eval_dtype: str = "bfloat16"
-    # SVD backend: "auto" picks randomized for large matrices, exact for small.
+    # SVD backend: "auto" is exact up to 1M entries and the Gram path above
+    # (ops/svd.py:auto_backend, measured on the card).
     svd_backend: str = "auto"
-    # The JAX package's batched-ratio scan, device mesh and host-residency
-    # options. Kept so that the flags and the cache-key hashes match; the
-    # port's scan is serial whatever sensitivity_batch_ratios says, and
-    # pipeline.py raises for a mesh above one device or any residency
-    # setting (ROADMAP queue 1, items 5, 7 and 8).
+    # The sensitivity evaluator (True: the prefix-cached suffix scan on a
+    # uniform all-dense model, else the serial loop), the device mesh, the
+    # scan's per-leaf resume file (factor checkpoints under
+    # <scan_resume_path>.factors) and the host-RSS budget. The flags and
+    # cache-key hashes match the JAX package's; pipeline.py raises for a
+    # mesh above one device and for max_host_rss_gb > 0 (ROADMAP queue 1,
+    # items 7 and 8).
     sensitivity_batch_ratios: bool = True
     mesh_shape: tuple = (1, 1)
     scan_resume_path: str = ""

@@ -56,8 +56,9 @@ def check_supported(cfg: ASVDConfig) -> None:
     unsupported = [
         (cfg.calib_dataset == "selfgen", "calib_dataset='selfgen'", "item 6"),
         (int(np.prod(cfg.mesh_shape)) > 1, f"mesh_shape={cfg.mesh_shape}", "item 7"),
-        (bool(cfg.scan_resume_path) or cfg.max_host_rss_gb > 0,
-         "host residency (scan_resume_path / max_host_rss_gb)", "items 5 and 8"),
+        (cfg.max_host_rss_gb > 0,
+         f"max_host_rss_gb={cfg.max_host_rss_gb} (a host-RSS budget that "
+         "recycles the process; utils/hostguard.py is not ported)", "item 8"),
         (bool(cfg.eval_tasks) or cfg.eval_mmlu, "task evaluation", "item 6"),
     ]
     for bad, what, item in unsupported:
@@ -67,10 +68,16 @@ def check_supported(cfg: ASVDConfig) -> None:
 
 
 def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
-             times=None):
+             times=None, scan_log=None):
     """Calibration + sensitivity + search; returns
     (compressed_params, manifest, artifacts dict). Phase seconds go into
-    ``times`` when given."""
+    ``times`` when given, and the suffix scan's per-leaf records (backend,
+    SVD and evaluation seconds) into ``scan_log``.
+
+    ``cfg.scan_resume_path`` (JAX pipeline.py:109-133): the scan appends
+    each finished leaf to that JSONL file and a rerun replays the leaves it
+    finds there; the search checkpoints each leaf's factors under
+    ``<path>.factors``."""
     check_supported(cfg)
     times = {} if times is None else times
     dev = params["embed_tokens"].device
@@ -97,11 +104,13 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
                                              cfg.scaling_method, cache=cache,
                                              cache_key=cfg.calib_key())
 
+    resume = cfg.scan_resume_path or None
     with phase(times, "sensitivity", dev):
         if cfg.sensitivity_metric == "ppl":
             sensitivity = calib_sensitivity_ppl(params, spec, calib_loader, cfg,
                                                 stats=stats, fisher=fisher,
-                                                cache=cache)
+                                                cache=cache, resume=resume,
+                                                scan_log=scan_log)
         else:
             sensitivity = calib_sensitivity_stable_rank(params, spec,
                                                         calib_loader, cfg,
@@ -110,7 +119,8 @@ def compress(params, spec, tokenizer, cfg: ASVDConfig, *, vocab_size=None,
     with phase(times, "binary_search", dev):
         compressed, manifest = binary_search_truncation_rank(
             params, spec, sensitivity, calib_loader, cfg, stats=stats,
-            fisher=fisher)
+            fisher=fisher,
+            resume_dir=(resume + ".factors") if resume else None)
 
     if cfg.weight_quant != "none":
         from asvd4llm_tpu_torch.ops.quant_apply import quantize_model_weights

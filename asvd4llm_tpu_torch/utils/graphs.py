@@ -20,6 +20,7 @@ the CPU tests run the code that the card replays.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -52,7 +53,8 @@ class StepGraph:
     stream (this builds every kernel library, sets each kernel's shared
     memory attribute and looks up the tensor-map encoder, none of which may
     happen during a capture), puts the ``state`` tensors back as they were,
-    then captures one step in the default (global) error mode. A failed
+    then captures one step in the default (global) error mode, with the
+    cyclic garbage collector off. A failed
     capture raises; nothing falls back to eager steps. The warm-up writes
     the caches at the step's position, which the first replay writes again
     with the same values.
@@ -82,8 +84,18 @@ class StepGraph:
             t.copy_(s)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.step()
+        # the cyclic collector stays off during the capture: a step closure
+        # and the decoder that holds its graph form a cycle, and a dead one
+        # collected inside the capture would destroy its graph there
+        # (cudaGraphExecDestroy), which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         after = _counts()
         for name, fn in counted_kernels().items():
             n0, forms0 = before[name]

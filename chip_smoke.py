@@ -51,7 +51,18 @@ Phases:
            latent="auto"; 8 requests of 64-1024 prompt tokens each, through
            the engine's captured decode graphs and with eager steps
            (eager_steps=True), in turns, with the same tokens. Needs the
-           main phase.
+           main phase;
+  fulldepth  Llama-2-7B at its published 32 layers and widths, random bf16
+           weights built on the card: pipeline.compress with the
+           prefix-cached suffix scan and a scan_resume_path (the scan's SVD
+           and evaluation seconds by leaf shape, the SVD backend each shape
+           resolved to, peak memory against the weights' bytes, the
+           host-eigh rung's count, which must be 0), pipeline.evaluate
+           (windowed PPL, kernel 1 at M = 1024) and greedy decode through
+           generate_on_device and eagerly, in turns, with identical tokens;
+           then six leaves' grids timed with the suffix and the serial
+           evaluator in turns (PPLs within rtol 1e-3), and a 2-layer scan
+           resumed from half its JSONL (the same sensitivity and manifest).
 
 Exits non-zero without a CUDA device, and when any phase fails. The last
 line of standard output is the device record
@@ -1468,6 +1479,228 @@ def fisher_full_depth(torch, config, device, seqlen=256):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- full depth
+
+# the full-depth compression run: Llama-2-7B at its published 32 layers
+FULLDEPTH_SIZES = {"n_calib_samples": 8, "seqlen": 256}
+# the leaves whose grid is timed with the suffix and the serial evaluator
+PAIRED_LEAVES = [(0, "q_proj"), (0, "down_proj"), (16, "q_proj"), (16, "down_proj"),
+                 (31, "q_proj"), (31, "down_proj")]
+# the predicted per-leaf speedup of the suffix evaluator: the serial one runs
+# all L layers and the head, the suffix one layers l..L-1 and the head; at
+# Llama-2-7B widths the head (4096 x 32000) costs 131 M MACs a token against
+# 202 M for a layer
+HEAD_IN_LAYERS = 4096 * 32000 / (4 * 4096 * 4096 + 3 * 4096 * 11008)
+
+
+def _fulldepth_cfg(work, tag, layers, **kw):
+    from asvd4llm_tpu_torch.config import ASVDConfig
+    return ASVDConfig(
+        model_id=f"llama-2-7b-random-{layers}l", param_ratio_target=0.9, rank_align=128,
+        act_aware=True, calib_dataset="synthetic", eval_ppl="synthetic",
+        n_calib_samples=FULLDEPTH_SIZES["n_calib_samples"], seqlen=FULLDEPTH_SIZES["seqlen"],
+        eval_dtype="bfloat16", use_cache=False, use_pallas=True,
+        cache_dir=os.path.join(work, f"{tag}_cache"), output_dir=os.path.join(work, f"{tag}_out"),
+        scan_resume_path=os.path.join(work, f"{tag}_scan.jsonl"), **kw)
+
+
+def _random_model(torch, config, layers, dev):
+    """Random bf16 weights at the config's widths and `layers` depth, built
+    on the device from seed 0 (no file written)."""
+    from asvd4llm_tpu_torch.models.init import init_params
+    from asvd4llm_tpu_torch.models.spec import spec_from_hf_config
+    spec = spec_from_hf_config(dict(config, num_hidden_layers=layers))
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    return params, spec
+
+
+def scan_split(scan_log):
+    """The scan's per-leaf records by leaf shape: leaves, backends, SVD and
+    evaluation seconds, candidates."""
+    by: dict = {}
+    for r in scan_log:
+        d = by.setdefault(r["shape"], {"leaves": 0, "backends": set(), "svd_s": 0.0,
+                                       "eval_s": 0.0, "candidates": 0})
+        d["leaves"] += 1
+        d["backends"].add(r["backend"])
+        d["svd_s"] += r["svd_s"]
+        d["eval_s"] += r["eval_s"]
+        d["candidates"] += r["candidates"]
+    return by
+
+
+def paired_evaluators(torch, params, spec, cfg, art, dev):
+    """For PAIRED_LEAVES, the leaf's weight grid (one SVD, six dense
+    candidates) scored by the suffix evaluator (layers l..31 and the head
+    from the cached hidden at layer l's input) and by the serial one (a full
+    forward per candidate), in turns suffix/serial/serial/suffix; the PPLs
+    must agree within rtol 1e-3 (bf16: the two run other row batches)."""
+    from asvd4llm_tpu_torch.calib import sensitivity as sens
+    from asvd4llm_tpu_torch.eval.ppl import evaluate_perplexity
+    from asvd4llm_tpu_torch.models.registry import linear_name, set_linear
+    from asvd4llm_tpu_torch.ops.asvd import build_scaling_vector
+
+    grid = sens.WEIGHT_RATIO_GRID
+    ids = np.concatenate([np.asarray(b["input_ids"]) for b in art["calib_loader"]])
+    n = ids.shape[0]
+    rows = torch.as_tensor(ids, device=dev)
+    labels, mask = rows[:, 1:], torch.ones(n, device=dev)
+    L = len(params["layers"])
+    with torch.no_grad():
+        hidden, at = sens._embed_rows(params, spec, rows), 0
+        for li, key in PAIRED_LEAVES:
+            while at < li:
+                hidden, at = sens._advance_block(params, spec, hidden, at), at + 1
+            name = linear_name(spec, li, key)
+            leaf = params["layers"][li][key]
+            scale = build_scaling_vector(art["stats"][name], None, cfg.alpha)
+            leaves = sens.recomposed_dense_all_ratios(
+                leaf["w"], leaf["b"], grid, scale, cfg.rank_align, cfg.svd_backend,
+                torch.Generator(device=dev).manual_seed(0))
+            w_hats = torch.stack([leaves[r]["w"] for r in grid])
+            run = {
+                "suffix": lambda: sens._blocks_ppl(n, [sens._ppl_multi_ratio_suffix(
+                    params, spec, hidden, labels, mask, key, li, w_hats)]),
+                "serial": lambda: np.array([evaluate_perplexity(
+                    set_linear(params, spec, name, leaves[r]), spec, ids, n) for r in grid]),
+            }
+            secs = {"suffix": [], "serial": []}
+            ppl = {}
+            for path in ("suffix", "serial", "serial", "suffix"):
+                ppl[path], s = _timed(torch, dev, run[path])
+                secs[path].append(s)
+            t_suf, t_ser = (float(np.median(secs[p])) for p in ("suffix", "serial"))
+            pred = (L + HEAD_IN_LAYERS) / (L - li + HEAD_IN_LAYERS)
+            rel = float(np.max(np.abs(ppl["suffix"] / ppl["serial"] - 1)))
+            log(f"  {name} grid of {len(grid)}: suffix {'/'.join(f'{s:.3f}' for s in secs['suffix'])}"
+                f" s, serial {'/'.join(f'{s:.3f}' for s in secs['serial'])} s (in turns); "
+                f"speedup {t_ser / t_suf:.2f}x measured, {pred:.2f}x predicted "
+                f"((L + head) / (L - l + head), head = {HEAD_IN_LAYERS:.3f} layers); "
+                f"PPL max rel diff {rel:.2e} (rtol 1e-3); suffix PPL "
+                f"{[round(float(p), 3) for p in ppl['suffix']]}")
+            if not rel <= 1e-3:
+                raise AssertionError(f"{name}: the suffix and serial evaluators disagree "
+                                     f"({ppl['suffix']} against {ppl['serial']})")
+
+
+def resume_on_card(torch, work, config, dev):
+    """Per-leaf resume at 2 layers: a finished scan's JSONL cut to half its
+    lines (and no factor checkpoints, as after a kill inside the scan),
+    then a rerun with the cache off must recompute only the missing leaves
+    and give the same sensitivity dict (replayed leaves bit for bit,
+    recomputed ones within rtol 1e-5) and the same manifest."""
+    from asvd4llm_tpu_torch import pipeline
+    params, spec = _random_model(torch, config, SMOKE_LAYERS, dev)
+    cfg = _fulldepth_cfg(work, "resume", SMOKE_LAYERS)
+    path = cfg.scan_resume_path
+    _, man, art = pipeline.compress(params, spec, None, cfg)
+    with open(path) as f:
+        lines = f.readlines()
+    keep = len(lines) // 2
+    with open(path, "w") as f:
+        f.writelines(lines[:keep])
+    shutil.rmtree(path + ".factors")
+    scan_log = []
+    (_, man2, art2), secs = _timed(torch, dev, lambda: pipeline.compress(
+        params, spec, None, cfg, scan_log=scan_log))
+    sens, sens2 = art["sensitivity"], art2["sensitivity"]
+    names = list(sens)
+    recomputed = [r["name"] for r in scan_log]
+    bitwise = sens2 == sens
+    worst = max(abs(sens2[n][r] / sens[n][r] - 1) for n in names[keep:] for r in sens[n])
+    log(f"resume at {SMOKE_LAYERS} layers: JSONL of {len(lines)} leaves cut to {keep}; the "
+        f"rerun ({secs:.2f} s) recomputed {len(recomputed)} leaves, "
+        f"{'the same dict bit for bit' if bitwise else f'recomputed PPLs within {worst:.2e}'}"
+        f", manifest {'equal' if man2 == man else 'DIFFERENT'} ({len(man2)} leaves)")
+    if recomputed != names[keep:] or list(sens2) != names or man2 != man:
+        raise AssertionError(f"resume recomputed {recomputed} of {names}; manifests "
+                             f"{man2} against {man}")
+    if any(sens2[n] != sens[n] for n in names[:keep]) or not worst <= 1e-5:
+        raise AssertionError("the resumed scan's sensitivity differs from the first run's")
+    del params
+
+
+def phase_fulldepth(torch, work, config, device, launches):
+    """Llama-2-7B at its published 32 layers and widths, random bf16 weights
+    built on the device from seed 0: pipeline.compress (the suffix scan
+    with a scan_resume_path, the search), pipeline.evaluate (windowed PPL
+    with the kernels: kernel 1 at M = 1024 through all 32 layers), then
+    greedy decode of NEW_TOKENS at DECODE_BATCH through generate_on_device
+    and eagerly, in turns, with identical tokens (kernel 1 at M = 4). The
+    kernel counts are set to 0 before compress and read after the decode.
+    Then the paired suffix/serial timings at full depth, and per-leaf
+    resume at 2 layers."""
+    from asvd4llm_tpu_torch import pipeline
+    from asvd4llm_tpu_torch.export.checkpoint import flatten
+    from asvd4llm_tpu_torch.ops import svd
+
+    dev = torch.device(device)
+    _sync(torch, dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    (params, spec), build_s = _timed(torch, dev, lambda: _random_model(
+        torch, config, config["num_hidden_layers"], dev))
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    cfg = _fulldepth_cfg(work, "fulldepth", spec.num_layers)
+    log(f"full depth: {spec.num_layers} layers, weights {weight_bytes / 1e9:.3f} GB built on "
+        f"the device in {build_s:.1f} s; {FULLDEPTH_SIZES}, --param_ratio_target 0.9 "
+        f"--rank_align 128 --act_aware, svd_backend {cfg.svd_backend}, scan_resume_path "
+        f"{os.path.basename(cfg.scan_resume_path)}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    host_eigh0 = svd.host_eigh_calls
+    times, scan_log = {}, []
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    compressed, manifest, art = pipeline.compress(params, spec, None, cfg, times=times,
+                                                  scan_log=scan_log)
+    ppl = pipeline.evaluate(compressed, spec, None, cfg, times=times)["synthetic"]
+    total = time.perf_counter() - t0
+    toks = greedy(torch, {"params": compressed, "spec": spec},
+                  main_prompt(spec.vocab_size), latent_kv=False)
+    counts, forms = kernel_counts(), form_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else None
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    log("  phase times (s): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f"; compress + evaluate {total:.1f}")
+    for shape, d in sorted(scan_split(scan_log).items()):
+        log(f"  scan, {shape[0]}x{shape[1]}: {d['leaves']} leaves, backend "
+            f"{'/'.join(sorted(d['backends']))}, SVD {d['svd_s']:.2f} s, evaluation "
+            f"{d['eval_s']:.2f} s ({d['candidates']} candidates, "
+            f"{1e3 * d['eval_s'] / max(d['candidates'], 1):.1f} ms each)")
+    n_cand = sum(r["candidates"] for r in scan_log)
+    n_eigh = svd.host_eigh_calls - host_eigh0
+    log(f"  scan: {len(scan_log)} leaves, {n_cand} candidates scored, SVD "
+        f"{sum(r['svd_s'] for r in scan_log):.2f} s, evaluation "
+        f"{sum(r['eval_s'] for r in scan_log):.2f} s; manifest {len(manifest)} low-rank "
+        f"leaves; host-eigh rung taken {n_eigh} times; peak device memory above the "
+        f"{base / 1e9:.3f} GB held before "
+        + ("not measured" if peak is None else
+           f"{peak / 1e9:.3f} GB = {peak / weight_bytes:.3f}x the weights' bytes"))
+    log(f"  ppl(synthetic, seqlen {cfg.seqlen}) = {ppl!r}; kernel launches: {counts}; "
+        f"by form: {forms}; first row's first new tokens {toks[0, -NEW_TOKENS:][:8].tolist()}")
+    if not (ppl == ppl and 1.0 < ppl < float("inf")):
+        raise AssertionError(f"full depth: PPL {ppl!r} is not a finite value above 1")
+    want = spec.num_layers * 7 + 1
+    if len(scan_log) != want or not manifest or n_eigh:
+        raise AssertionError(f"full depth: {len(scan_log)} of {want} leaves scanned, "
+                             f"{len(manifest)} factorized, host eigh {n_eigh}")
+    check_forms("full depth", {"fused_lowrank": "wgmma_tiled"}, forms)
+    if not forms.get("fused_lowrank", {}).get("mma_skinny"):
+        raise AssertionError("full depth: the decode never ran kernel 1's mma_skinny form")
+    del compressed, toks
+    log("full depth, suffix against serial evaluator (predicted speedup: 1.0x at layer 0, "
+        "about 2x at 16, about 20x at 31):")
+    paired_evaluators(torch, params, spec, cfg, art, dev)
+    del params, art
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    resume_on_card(torch, work, config, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- export
 
 # the main-path models the export phase writes and reads back
@@ -1858,7 +2091,7 @@ def phase_serve(torch, models, launches):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main,export,serve")
+    ap.add_argument("--phases", default="kernels,main,export,serve,fulldepth")
     ap.add_argument("--workdir", default="",
                     help="checkpoint/cache directory (default: a temporary one)")
     args = ap.parse_args(argv)
@@ -1915,6 +2148,8 @@ def main(argv=None) -> int:
             del models
         elif "serve" in phases or "export" in phases:
             raise ValueError("the serve and export phases need the main phase's models")
+        if "fulldepth" in phases:
+            phase_fulldepth(torch, work, LLAMA2_7B, "cuda:0", launches)
     finally:
         if not args.workdir:
             shutil.rmtree(work, ignore_errors=True)

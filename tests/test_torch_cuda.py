@@ -1002,3 +1002,33 @@ def test_export_round_trip_on_card(cuda, tmp_path):
                         assert layer[key][k].dtype == t.dtype and torch.equal(layer[key][k], t)
         got = generate_on_device(p, spec, ids.numpy(), max_new_tokens=6, use_pallas=True)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_step_graph_captures_with_the_collector_off(cuda):
+    """The cyclic garbage collector is off while a step is captured and on
+    again after (its warm-up runs with it on): a dead decoder collected
+    inside a capture would destroy its own graph there, which invalidates
+    the capture (cudaErrorStreamCaptureInvalidated). The replays count."""
+    import gc
+
+    from asvd4llm_tpu_torch.utils.graphs import StepGraph
+
+    seen = []
+    x = torch.zeros(4, device=cuda)
+
+    def step():
+        seen.append(gc.isenabled())
+        x.add_(1)
+    assert gc.isenabled()
+    g = StepGraph(step, [x])
+    g.replay(3)
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled() and float(x[0]) == 3
+    # with the collector off before, it stays off after
+    gc.disable()
+    try:
+        StepGraph(step, [x])
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
